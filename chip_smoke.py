@@ -1,0 +1,482 @@
+"""Chip smoke of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
+
+Phases, each of which fails the run (non-zero exit) when it fails:
+
+1. environment: torch and CUDA versions, the card's name and power limit;
+2. build of every CUDA kernel from ``rtdsd_tpu_torch/csrc`` (parallel nvcc);
+3. each kernel against its plain PyTorch version on the card, at the shapes
+   the main path gives it (batch 16), with times of the kernel, the plain
+   version, the least time the card could take (bound) and, for attention,
+   ``scaled_dot_product_attention`` as the library yardstick (timed here,
+   never used by the port);
+4. the main path: a full-width XLSR_AASIST (24 layers, width 1024, random
+   weights from seed 0) saved as a reference-named ``.pt``, 32 synthetic
+   four-second clips scored in bf16 through ``rtdsd_tpu_torch.cli.main``
+   with ``fused_gat: true`` and ``fast_softmax: false``; the kernels' launch
+   counters must read 24, 2 and 4 per batch;
+5. one full-width float32 batch with the kernels against the same batch
+   with every kernel swapped for its plain version (TF32 off): logits agree;
+   then steady-state ms per clip (bf16 and f32) and a torch.profiler
+   breakdown of one bf16 batch's device time.
+
+It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
+limit line, and as its last line ``{"ok": true, "device": {...}}``. Scratch
+files go to ``build/chip_smoke/`` in the checkout.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(ROOT, "build", "chip_smoke")
+B = 16                      # clips per batch on the main path
+N_CLIPS = 32
+SAMPLES = 64000             # 4 s at 16 kHz -> 199 frames
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
+PEAK = {"bf16": 989e12, "f32": 67e12}   # dense FLOP/s, published
+# (rtol, atol): f32 differs by summation order only; bf16 may round the
+# output one step apart (a bf16 step is 2^-8 of the value)
+ATTN_TOL = {"f32": (1e-4, 1e-5), "bf16": (1e-2, 1e-2)}
+GAT_TOL = (1e-4, 1e-5)      # f32 throughout, summation order only
+LOGIT_TOL = 1e-3            # 24 f32 layers + graph back-end, order only
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: captured once in a CUDA graph and
+    replayed, so host launch overhead is not in the number."""
+    fn()                                         # warm-up, outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float, kind: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK[kind] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ------------------------------------------------------------ phase 3
+
+def check_attention(dev) -> dict:
+    import torch.nn.functional as F
+
+    from rtdsd_tpu_torch.ops.attention import mha_small_t, mha_small_t_reference
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    t, h, d = 199, 16, 64
+    rec = {}
+    for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        # q, k, v as the layer makes them: views of (B, T, H*D) projections
+        q, k, v = (torch.randn((B, t, h * d), generator=g, device=dev)
+                   .to(dtype).view(B, t, h, d) for _ in range(3))
+        got = mha_small_t(q, k, v)
+        want = mha_small_t_reference(q, k, v)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rtol, atol = ATTN_TOL[kind]
+        log(f"mha_small_t {kind} (B={B}, T={t}, H={h}, D={d}): max|d| {err:.3g}"
+            f" (rtol {rtol}, atol {atol})")
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+        ms = device_ms(lambda: mha_small_t(q, k, v))
+        plain = device_ms(lambda: mha_small_t_reference(q, k, v))
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
+        size = q.element_size()
+        bnd, by = bound_ms(4 * B * t * h * d * size, 4 * B * h * t * t * d,
+                           kind)
+        log(f"  kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by})")
+        rec[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                         bound_by=by, library_ms=lib,
+                         shape=f"q,k,v ({B},{t},{h},{d}) {kind}")
+    return rec["bf16"]           # the main path runs attention in bf16
+
+
+def _gat_ops(n: int, d: int, do: int) -> float:
+    """Operations of one aggregation over B graphs of n nodes: per (i, j)
+    the pair product (d), projection (2 d do), bias + tanh + edge dot
+    (3 do), then softmax (3 n per row) and the weighted sum (2 n d)."""
+    return B * (n * n * (d + 2 * d * do + 3 * do) + 3 * n * n + 2 * n * n * d)
+
+
+def check_gat(dev, htrg: bool) -> dict:
+    from rtdsd_tpu_torch.ops import gat
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    # main-path shapes: GAT_layer_S/T, or HtrgGAT ST11/ST21 and ST12/ST22
+    shapes = ([(54, 64, 32, 33, 100.0), (26, 32, 32, 16, 100.0)] if htrg
+              else [(42, 64, 64, None, 2.0), (66, 64, 64, None, 2.0)])
+    name = "fused_htrg_gat_aggregate" if htrg else "fused_gat_aggregate"
+    rec = None
+    for n, d, do, n1, temp in shapes:
+        x = torch.randn((B, n, d), generator=g, device=dev)
+        w = torch.randn((d, do), generator=g, device=dev) * d ** -0.5
+        bias = torch.randn((do,), generator=g, device=dev) * 0.1
+        vecs = [torch.randn((do, 1), generator=g, device=dev) * do ** -0.5
+                for _ in range(3 if htrg else 1)]
+        if htrg:
+            run = lambda: gat.fused_htrg_gat_aggregate(x, w, bias, *vecs, n1, temp)
+            ref = lambda: gat.fused_htrg_gat_aggregate_reference(
+                x, w, bias, *vecs, n1, temp)
+        else:
+            run = lambda: gat.fused_gat_aggregate(x, w, bias, vecs[0], temp)
+            ref = lambda: gat.fused_gat_aggregate_reference(x, w, bias,
+                                                            vecs[0], temp)
+        got, want = run(), ref()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        log(f"{name} (B={B}, N={n}, D={d}, Do={do}"
+            f"{'' if n1 is None else f', n1={n1}'}): max|d| {err:.3g} "
+            f"(rtol {GAT_TOL[0]}, atol {GAT_TOL[1]})")
+        torch.testing.assert_close(got, want, rtol=GAT_TOL[0], atol=GAT_TOL[1])
+        ms, plain = device_ms(run), device_ms(ref)
+        nbytes = 4 * (2 * B * n * d + d * do + (1 + len(vecs)) * do)
+        bnd, by = bound_ms(nbytes, _gat_ops(n, d, do), "f32")
+        log(f"  kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
+            f"({by})")
+        this = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                    bound_by=by, library_ms=None,
+                    shape=f"x ({B},{n},{d}) W ({d},{do}) f32")
+        if rec is None or this["ms"] > rec["ms"]:
+            rec = this                       # report the heavier shape
+    return rec
+
+
+# ------------------------------------------------------------ phase 4
+
+def random_reference_state_dict(model: torch.nn.Module, seed: int) -> dict:
+    """Random weights from a seed, under the reference's names: linear and
+    conv weights ~ N(0, 1/fan_in), biases small, norms at identity, BN
+    running stats non-trivial; the positional conv split into fairseq's
+    weight_g / weight_v, and the reference's dead bn1 keys included."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, t in model.state_dict().items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "num_batches_tracked":
+            sd[name] = torch.zeros((), dtype=torch.long)
+        elif leaf == "running_var":
+            sd[name] = torch.rand(t.shape, generator=g) + 0.5
+        elif leaf in ("running_mean", "bias"):
+            sd[name] = torch.randn(t.shape, generator=g) * 0.02
+        elif t.dim() == 1:                      # norm scales
+            sd[name] = torch.ones(t.shape)
+        elif "att_weight" in leaf:              # edge vectors (Do, 1)
+            sd[name] = torch.randn(t.shape, generator=g) * t.shape[0] ** -0.5
+        else:
+            fan_in = t[0].numel() if t.dim() > 1 else 1
+            sd[name] = torch.randn(t.shape, generator=g) * fan_in ** -0.5
+    for key in [k for k in sd if k.endswith(("pos_S", "master1", "master2"))]:
+        sd[key] = torch.randn(sd[key].shape, generator=g)
+    pos = "ssl_model.model.encoder.pos_conv.0.weight"
+    w = sd.pop(pos)
+    sd[pos + "_g"] = w.pow(2).sum(dim=(0, 1), keepdim=True).sqrt()
+    sd[pos + "_v"] = w
+    for i in range(1, 6):
+        c = sd[f"encoder.{i}.0.conv1.weight"].shape[1]
+        for leaf, val in (("weight", torch.ones(c)), ("bias", torch.zeros(c)),
+                          ("running_mean", torch.zeros(c)),
+                          ("running_var", torch.ones(c)),
+                          ("num_batches_tracked", torch.zeros((), dtype=torch.long))):
+            sd[f"encoder.{i}.0.bn1.{leaf}"] = val
+    return sd
+
+
+def write_track(root: str) -> None:
+    from rtdsd_tpu_torch.data.io import write_wav
+
+    rng = np.random.default_rng(0)
+    os.makedirs(os.path.join(root, "audio"), exist_ok=True)
+    lines = []
+    for i in range(N_CLIPS):
+        n = 40000 + 1000 * i          # some shorter than 4 s: repeat-tiled
+        t = np.arange(n) / 16000
+        bona = i % 2 == 1
+        wave = (0.3 * np.sin(2 * np.pi * (220 + 20 * i) * t) if bona
+                else 0.2 * rng.standard_normal(n)).astype(np.float32)
+        uid = f"LA_E_{i:07d}"
+        write_wav(os.path.join(root, "audio", uid + ".flac"), wave, 16000)
+        lines.append(f"LA_0001 {uid} alaw ita_tx {'bonafide' if bona else 'spoof'}")
+    with open(os.path.join(root, "la21.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_config(root: str, dtype: str, model: str = "XLSR_AASIST",
+                 kwargs: dict = None) -> str:
+    kwargs = kwargs or {"fused_gat": True, "w2v": {"fast_softmax": False}}
+    cfg = {"SysConfig": {"model": model, "wandb_disabled": True,
+                         "path_label_asv_spoof_2021_la_eval": f"{root}/la21.txt",
+                         "path_asv_spoof_2021_la_eval": f"{root}/audio",
+                         "la21_score_save_path": f"{root}/scores_la21.txt"},
+           "ExpConfig": {"compute_dtype": dtype, "batch_size_test": B,
+                         "test_duration_sec": SAMPLES / 16000,
+                         "kwargs": kwargs}}
+    path = os.path.join(root, f"config_{dtype}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)       # JSON syntax: loads with or without PyYAML
+    return path
+
+
+def counters():
+    from rtdsd_tpu_torch.ops import attention, gat
+
+    return (attention.mha_small_t, gat.fused_gat_aggregate,
+            gat.fused_htrg_gat_aggregate)
+
+
+def main_path(ckpt: str) -> dict:
+    from rtdsd_tpu_torch.cli import main as cli
+
+    cfg = write_config(WORK, "bfloat16")
+    scores = os.path.join(WORK, "scores_la21.txt")
+    if os.path.exists(scores):
+        os.remove(scores)
+    for fn in counters():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    cli.main(["--config", cfg, "--is_eval", "--is_score", "--ckpt", ckpt,
+              "--tracks", "LA21"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters()}
+    with open(scores) as f:
+        lines = f.read().splitlines()
+    vals = np.array([float(l.split(" ")[1]) for l in lines])
+    if len(lines) != N_CLIPS or not np.all(np.isfinite(vals)):
+        raise RuntimeError(f"score file has {len(lines)} lines, finite: "
+                           f"{np.isfinite(vals).sum()}")
+    batches = -(-N_CLIPS // B)
+    want = {"mha_small_t": 24 * batches, "fused_gat_aggregate": 2 * batches,
+            "fused_htrg_gat_aggregate": 4 * batches}
+    log(f"main path: {len(lines)} finite scores; launches {launches} "
+        f"(want {want}); CLI wall {wall:.2f} s incl. model build and load")
+    if launches != want:
+        raise RuntimeError(f"kernel launches {launches} != {want}")
+    return {"launches": launches, "scores": dict(
+        (l.split(" ")[0], float(l.split(" ")[1])) for l in lines)}
+
+
+def batch_waves(dev) -> torch.Tensor:
+    from rtdsd_tpu_torch.config import load_yaml_config
+    from rtdsd_tpu_torch.data.dataset import ASVspoof2021LA_eval
+
+    sys_cfg, exp_cfg = load_yaml_config(write_config(WORK, "float32"))
+    ds = ASVspoof2021LA_eval(sys_cfg, exp_cfg)
+    return torch.from_numpy(np.stack([ds.get(i)[1] for i in range(B)])).to(dev)
+
+
+def steady_ms_per_clip(model, waves) -> float:
+    with torch.inference_mode():
+        model(waves)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(5):
+            model(waves)
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end) / 5 / waves.shape[0]
+
+
+KERNEL_CLASSES = (("mha_small_t kernel", ("mha_small_t_kernel",)),
+                  ("GAT kernels", ("gat_kernel",)),
+                  ("GEMM", ("gemm", "nvjet", "xmma", "cublas")),
+                  ("convolution", ("conv", "fprop", "cudnn")),
+                  ("norm/softmax/reduce", ("norm", "softmax", "reduce")),
+                  ("copy/cast", ("copy", "cat")),
+                  ("elementwise", ("elementwise",)))
+
+
+def profile_forward(model, waves, top: int = 12) -> None:
+    """Where one batch's forward spends device time: kernels by device time
+    (torch.profiler / CUPTI), grouped by class, and the device's busy share
+    of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        model(waves)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model(waves)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(r[1] for r in rows)
+    log(f"profile, one bf16 batch of {waves.shape[0]}: wall {wall_ms:.2f} ms, "
+        f"kernels {busy:.2f} ms (device busy {100 * busy / wall_ms:.1f}%), "
+        f"{sum(r[2] for r in rows)} kernel launches")
+    classes = {}
+    for key, ms, n in rows:
+        low = key.lower()
+        cls = next((c for c, subs in KERNEL_CLASSES
+                    if any(sub in low for sub in subs)), "other")
+        t, c = classes.get(cls, (0.0, 0))
+        classes[cls] = (t + ms, c + n)
+    for cls, (ms, n) in sorted(classes.items(), key=lambda kv: -kv[1][0]):
+        log(f"  class {cls:22s} {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n}")
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:top]:
+        log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<5d} {key[:90]}")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Swap every kernel wrapper the model calls for its plain version."""
+    from rtdsd_tpu_torch.models import aasist, wav2vec2
+    from rtdsd_tpu_torch.ops import attention, gat
+
+    swaps = [(wav2vec2, "mha_small_t", attention.mha_small_t_reference),
+             (aasist, "fused_gat_aggregate", gat.fused_gat_aggregate_reference),
+             (aasist, "fused_htrg_gat_aggregate",
+              gat.fused_htrg_gat_aggregate_reference)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    try:
+        for m, n, f in swaps:
+            setattr(m, n, f)
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def build_model(sd: dict, dtype: torch.dtype, dev, fast_softmax=False):
+    from rtdsd_tpu_torch.models.convert import load_reference_state_dict
+    from rtdsd_tpu_torch.models.registry import get_model
+
+    spec = get_model("XLSR_AASIST", dtype=dtype, fused_gat=True,
+                     w2v={"fast_softmax": fast_softmax})
+    spec.module.load_state_dict(load_reference_state_dict(sd), strict=True)
+    return spec.module.to(dev).eval()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    from rtdsd_tpu_torch.ops import build
+    from rtdsd_tpu_torch.models.registry import get_model
+
+    dev = torch.device("cuda")
+    name, card = torch.cuda.get_device_name(0), smi()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    log(f"card: {card}")
+
+    t0 = time.perf_counter()
+    built = build.build_all()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'cached'})")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    records = {"mha_small_t": (check_attention(dev), "cuda",
+                               "rtdsd_tpu_torch/csrc/mha_small_t.cu",
+                               "rtdsd_tpu/ops/pallas/attention.py:91"),
+               "fused_gat_aggregate": (check_gat(dev, htrg=False), "cuda",
+                                       "rtdsd_tpu_torch/csrc/gat.cu",
+                                       "rtdsd_tpu/ops/pallas/gat.py:99"),
+               "fused_htrg_gat_aggregate": (check_gat(dev, htrg=True), "cuda",
+                                            "rtdsd_tpu_torch/csrc/gat.cu",
+                                            "rtdsd_tpu/ops/pallas/gat.py:183")}
+
+    os.makedirs(WORK, exist_ok=True)
+    t0 = time.perf_counter()
+    shell = get_model("XLSR_AASIST").module
+    sd = random_reference_state_dict(shell, seed=0)
+    del shell
+    ckpt = os.path.join(WORK, "xlsr_aasist_seed0.pt")
+    torch.save(sd, ckpt)
+    write_track(WORK)
+    log(f"full-width XLSR_AASIST, random weights (seed 0): "
+        f"{sum(v.numel() for k, v in sd.items() if 'running' not in k) / 1e6:.1f}"
+        f" M values, saved in {time.perf_counter() - t0:.1f} s")
+
+    run = main_path(ckpt)
+
+    # phase 5: one f32 batch, kernels against plain versions, TF32 off
+    waves = batch_waves(dev)
+    model = build_model(sd, torch.float32, dev)
+    with torch.inference_mode():
+        with_kernels = model(waves).float()
+        with plain_kernels():
+            plain = model(waves).float()
+    torch.cuda.synchronize()
+    drift = (with_kernels - plain).abs().max().item()
+    log(f"f32 full-width batch: logits kernels vs plain max|d| {drift:.3g} "
+        f"(tol {LOGIT_TOL}); |logits| max {plain.abs().max().item():.3g}")
+    if not torch.isfinite(with_kernels).all() or drift > LOGIT_TOL:
+        raise RuntimeError(f"f32 logits drift {drift} > {LOGIT_TOL}")
+    f32_ms = steady_ms_per_clip(model, waves)
+    del model
+    bf16 = build_model(sd, torch.bfloat16, dev)
+    bf16_ms = steady_ms_per_clip(bf16, waves)
+    with torch.inference_mode():
+        bf16_scores = bf16(waves)[:, 1].float()
+    cli_scores = torch.tensor([run["scores"][f"LA_E_{i:07d}"] for i in range(B)],
+                              device=dev)
+    log(f"steady forward, batch {B}: bf16 {bf16_ms:.4f} ms/clip, "
+        f"f32 {f32_ms:.4f} ms/clip; bf16 CLI scores vs bf16 forward max|d| "
+        f"{(cli_scores - bf16_scores).abs().max().item():.3g}; bf16 vs f32 "
+        f"score max|d| {(bf16_scores - plain[:, 1]).abs().max().item():.3g}")
+    # the CLI's first batch is these 16 clips through the same bf16 model;
+    # only convolution algorithm choice may differ between the two builds
+    scale = max(1.0, bf16_scores.abs().max().item())
+    if (cli_scores - bf16_scores).abs().max().item() > 0.05 * scale:
+        raise RuntimeError("CLI scores differ from the same model's forward")
+
+    profile_forward(bf16, waves)
+    del bf16
+    # the JAX default, fast_softmax: true, keeps the bf16 softmax in plain
+    # einsums (no kernel): its cost beside the kernel path
+    fast_ms = steady_ms_per_clip(
+        build_model(sd, torch.bfloat16, dev, fast_softmax=True), waves)
+    log(f"steady forward, batch {B}, bf16 with fast_softmax (plain bf16 "
+        f"softmax, no attention kernel): {fast_ms:.4f} ms/clip")
+
+    kernels = [dict(name=k, route=route, source=src, replaces=rep,
+                    launches=run["launches"][k], **rec)
+               for k, (rec, route, src, rep) in records.items()]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,102 @@
+"""CLI plumbing for scoring: the port of the eval part of
+``rtdsd_tpu/cli/common.py``."""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from rtdsd_tpu_torch.config import ExpConfig, SysConfig
+from rtdsd_tpu_torch.data.loader import EvalLoader
+from rtdsd_tpu_torch.engine.steps import make_score_step
+from rtdsd_tpu_torch.models.convert import load_reference_state_dict
+from rtdsd_tpu_torch.models.registry import ModelSpec, get_model
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def resolve_dtype(exp_config: ExpConfig) -> torch.dtype:
+    return DTYPES[exp_config.compute_dtype]
+
+
+def build_model(sys_config: SysConfig, exp_config: ExpConfig,
+                device: torch.device, name: Optional[str] = None,
+                kwargs: Optional[dict] = None) -> ModelSpec:
+    """The configured model, in eval mode, on ``device``."""
+    spec = get_model(name or sys_config.model, dtype=resolve_dtype(exp_config),
+                     **(kwargs if kwargs is not None else exp_config.kwargs))
+    spec.module.to(device).eval()
+    return spec
+
+
+def load_checkpoint_for_eval(ckpt: str, spec: ModelSpec) -> None:
+    """Load a reference ``.pt`` into ``spec.module`` (strict). The JAX
+    package's checkpoint directories are not readable by the port yet."""
+    if os.path.isdir(ckpt):
+        raise NotImplementedError(
+            f"{ckpt}: checkpoint directories of the JAX package are not yet "
+            "readable by the port; export a reference .pt with "
+            "rtdsd_tpu.models.export_reference")
+    spec.module.load_state_dict(load_reference_state_dict(ckpt), strict=True)
+
+
+def score_dataset(dataset, spec: ModelSpec, batch_size: int,
+                  device: torch.device, on_decode_error: str = "raise"):
+    """Score every trial in dataset order -> (utt_ids, scores). Batches are
+    dispatched without waiting; scores are read back once at the end."""
+    step = make_score_step(spec.module)
+    loader = EvalLoader(dataset, batch_size, on_decode_error=on_decode_error)
+    names, outs = [], []
+    for b in loader:
+        waves = torch.from_numpy(b.waves).to(device, non_blocking=True)
+        outs.append(step(waves)[:b.valid])
+        names.extend(b.utt_ids[:b.valid])
+    if not outs:
+        return names, []
+    return names, torch.cat(outs).float().cpu().tolist()
+
+
+def _write_score_file(save_path: str, names, scores) -> None:
+    os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
+    with open(save_path, "w") as fh:
+        for f, cm in zip(names, scores):
+            fh.write("{} {}\n".format(f, cm))
+    print(f"Wrote {len(names)} scores -> {save_path}")
+
+
+def tag_score_path(save_path: str, comment, path_attr: str) -> str:
+    """Insert ``_{comment}`` before the ``.txt`` of a score path; a path with
+    no ``.txt`` is rejected so that two tagged runs cannot collide."""
+    if not comment:
+        return save_path
+    if ".txt" not in save_path:
+        raise ValueError(
+            f"--comment needs a '.txt' score path to tag; "
+            f"{path_attr}={save_path!r} has none")
+    return save_path.replace(".txt", f"_{comment}.txt")
+
+
+def _check_score_shortfall(dataset, names) -> None:
+    """A score file must cover every trial (``skip`` may have dropped some)."""
+    expected = len(dataset.trials)
+    if len(names) != expected:
+        raise RuntimeError(
+            f"scored {len(names)}/{expected} trials — "
+            f"{expected - len(names)} utterance(s) were skipped "
+            f"(undecodable?). A score file must cover every trial; fix "
+            f"the corpus or score with on_decode_error='raise' to see "
+            f"the failing files.")
+
+
+def produce_evaluation_file(dataset, spec: ModelSpec, save_path: str,
+                            batch_size: int, device: torch.device,
+                            on_decode_error: str = "raise") -> None:
+    """Write the ``"{utt_id} {score}"`` score file, in the JAX package's
+    byte format; the score is the raw bonafide logit."""
+    names, scores = score_dataset(dataset, spec, batch_size, device,
+                                  on_decode_error)
+    _check_score_shortfall(dataset, names)
+    _write_score_file(save_path, names, scores)

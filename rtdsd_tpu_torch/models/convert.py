@@ -1,0 +1,171 @@
+"""Weights into the port's modules, two ways.
+
+- :func:`from_jax_variables`: the JAX package's ``{'params',
+  'batch_stats'}`` tree (as numpy arrays) -> the port's state dict. The
+  port's own copy of the layout rules of
+  ``rtdsd_tpu/models/export_reference.py``: Dense (I, O) -> Linear (O, I);
+  Conv (K, I/g, O) -> Conv1d (O, I/g, K); Conv (Kh, Kw, I, O) -> Conv2d
+  (O, I, Kh, Kw); scale/bias (+ mean/var) -> weight/bias (+ running stats).
+- :func:`load_reference_state_dict`: a reference ``.pt`` (or a state dict)
+  -> the port's state dict. It folds fairseq's weight-normed positional conv
+  (``weight_g``/``weight_v``, or the ``parametrizations`` spelling) into one
+  weight, strips a ``module.`` prefix, and drops keys the eval graph has no
+  use for: the reference's dead ``encoder.{i}.0.bn1.*`` and fairseq's
+  pretraining-only ``mask_emb``, ``quantizer.*``, ``project_q.*``,
+  ``final_proj.*``. The result loads with ``strict=True``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping, Union
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+_DEAD = re.compile(r"(^|\.)encoder\.\d+\.0\.bn1\.")
+_PRETRAIN_ONLY = re.compile(
+    r"^ssl_model\.model\.(mask_emb$|quantizer\.|project_q\.|final_proj\.)")
+_POS = "ssl_model.model.encoder.pos_conv.0"
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32))       # a copy
+
+
+def _lin(out: StateDict, name: str, p: Mapping):
+    out[f"{name}.weight"] = _t(p["kernel"]).t().contiguous()
+    if "bias" in p:
+        out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _conv1d(out: StateDict, name: str, p: Mapping):
+    out[f"{name}.weight"] = _t(p["kernel"]).permute(2, 1, 0).contiguous()
+    if "bias" in p:
+        out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _conv2d(out: StateDict, name: str, p: Mapping):
+    out[f"{name}.weight"] = _t(p["kernel"]).permute(3, 2, 0, 1).contiguous()
+    if "bias" in p:
+        out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _norm(out: StateDict, name: str, p: Mapping, stats: Mapping = None):
+    out[f"{name}.weight"] = _t(p["scale"])
+    out[f"{name}.bias"] = _t(p["bias"])
+    if stats is not None:
+        out[f"{name}.running_mean"] = _t(stats["mean"])
+        out[f"{name}.running_var"] = _t(stats["var"])
+        out[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _w2v(params: Mapping, P: str) -> StateDict:
+    out: StateDict = {}
+    fe = params["feature_extractor"]
+    for i in range(len([k for k in fe if k.startswith("conv_")])):
+        _conv1d(out, f"{P}feature_extractor.conv_layers.{i}.0", fe[f"conv_{i}"])
+        if f"ln_{i}" in fe:
+            _norm(out, f"{P}feature_extractor.conv_layers.{i}.2.1", fe[f"ln_{i}"])
+    if "gn_0" in fe:
+        _norm(out, f"{P}feature_extractor.conv_layers.0.2", fe["gn_0"])
+    _norm(out, f"{P}layer_norm", params["layer_norm_pre"])
+    _lin(out, f"{P}post_extract_proj", params["post_extract_proj"])
+    _conv1d(out, f"{P}encoder.pos_conv.0", params["pos_conv"]["conv"])
+    _norm(out, f"{P}encoder.layer_norm", params["encoder_layer_norm"])
+    stacked = params["layers"]["layer"]
+    names = {"self_attn_layer_norm": "self_attn_layer_norm",
+             "q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+             "v_proj": "self_attn.v_proj", "out_proj": "self_attn.out_proj",
+             "final_layer_norm": "final_layer_norm", "fc1": "fc1", "fc2": "fc2"}
+    for i in range(np.asarray(stacked["fc1"]["kernel"]).shape[0]):
+        for jax_name, torch_name in names.items():
+            sub = {k: np.asarray(v)[i] for k, v in stacked[jax_name].items()}
+            fn = _norm if "norm" in jax_name else _lin
+            fn(out, f"{P}encoder.layers.{i}.{torch_name}", sub)
+    return out
+
+
+def _aasist(params: Mapping, stats: Mapping) -> StateDict:
+    out: StateDict = {}
+    _lin(out, "LL", params["LL"])
+    _norm(out, "first_bn", params["first_bn"], stats["first_bn"])
+    _norm(out, "first_bn1", params["first_bn1"], stats["first_bn1"])
+    for i in range(6):
+        blk, bs = params[f"encoder_{i}"], stats[f"encoder_{i}"]
+        base = f"encoder.{i}.0"
+        _conv2d(out, f"{base}.conv1", blk["conv1"])
+        _norm(out, f"{base}.bn2", blk["bn2"], bs["bn2"])
+        _conv2d(out, f"{base}.conv2", blk["conv2"])
+        if "conv_downsample" in blk:
+            _conv2d(out, f"{base}.conv_downsample", blk["conv_downsample"])
+    _conv2d(out, "attention.0", params["att_conv1"])
+    _norm(out, "attention.2", params["att_bn"], stats["att_bn"])
+    _conv2d(out, "attention.3", params["att_conv2"])
+    for name in ("pos_S", "master1", "master2"):
+        out[name] = _t(params[name])
+    for name in ("GAT_layer_S", "GAT_layer_T"):
+        p = params[name]
+        for ln in ("att_proj", "proj_with_att", "proj_without_att"):
+            _lin(out, f"{name}.{ln}", p[ln])
+        out[f"{name}.att_weight"] = _t(p["att_weight"])
+        _norm(out, f"{name}.bn", p["bn"], stats[name]["bn"])
+    for name in ("HtrgGAT_layer_ST11", "HtrgGAT_layer_ST12",
+                 "HtrgGAT_layer_ST21", "HtrgGAT_layer_ST22"):
+        p = params[name]
+        for ln in ("proj_type1", "proj_type2", "att_proj", "att_projM",
+                   "proj_with_att", "proj_without_att", "proj_with_attM",
+                   "proj_without_attM"):
+            _lin(out, f"{name}.{ln}", p[ln])
+        for w in ("att_weight11", "att_weight22", "att_weight12", "att_weightM"):
+            out[f"{name}.{w}"] = _t(p[w])
+        _norm(out, f"{name}.bn", p["bn"], stats[name]["bn"])
+    for name in ("pool_S", "pool_T", "pool_hS1", "pool_hT1", "pool_hS2",
+                 "pool_hT2"):
+        _lin(out, f"{name}.proj", params[name]["proj"])
+    _lin(out, "out_layer", params["out_layer"])
+    return out
+
+
+def from_jax_variables(variables: Mapping[str, Any], model_name: str
+                       ) -> StateDict:
+    """JAX ``{'params', 'batch_stats'}`` of a zoo model (numpy leaves) ->
+    the port's state dict for the same model."""
+    if "AASIST" not in model_name:
+        raise NotImplementedError(f"model {model_name!r} is not yet ported")
+    params = variables["params"]
+    out = _w2v(params["ssl_model"], "ssl_model.model.")
+    out.update(_aasist(params["backend"], variables["batch_stats"]["backend"]))
+    return out
+
+
+def _fold_weight_norm(sd: StateDict) -> None:
+    """W = g * v / ||v||, the norm over dims (0, 1) (fairseq's dim=2)."""
+    for g_key, v_key in ((f"{_POS}.weight_g", f"{_POS}.weight_v"),
+                         (f"{_POS}.parametrizations.weight.original0",
+                          f"{_POS}.parametrizations.weight.original1")):
+        if g_key in sd:
+            g, v = sd.pop(g_key).float(), sd.pop(v_key).float()
+            norm = v.pow(2).sum(dim=(0, 1), keepdim=True).sqrt()
+            sd[f"{_POS}.weight"] = g * v / norm.clamp_min(1e-12)
+
+
+def load_reference_state_dict(path_or_dict: Union[str, Mapping]) -> StateDict:
+    """A reference ``.pt`` path or state dict -> the port's state dict."""
+    obj = path_or_dict
+    if isinstance(obj, str):
+        obj = torch.load(obj, map_location="cpu", weights_only=True)
+    if isinstance(obj.get("model"), Mapping):
+        obj = obj["model"]
+    if isinstance(obj.get("state_dict"), Mapping):
+        obj = obj["state_dict"]
+    sd: StateDict = {}
+    for k, v in obj.items():
+        k = k[len("module."):] if k.startswith("module.") else k
+        if _DEAD.search(k) or _PRETRAIN_ONLY.search(k):
+            continue
+        sd[k] = v if isinstance(v, torch.Tensor) else torch.as_tensor(v)
+    _fold_weight_norm(sd)
+    return sd

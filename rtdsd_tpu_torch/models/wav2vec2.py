@@ -1,0 +1,318 @@
+"""wav2vec2-XLSR front-end in PyTorch, eval mode: the port of
+``rtdsd_tpu/models/wav2vec2.py``.
+
+    raw wave (B, T)
+    -> strided conv feature extractor (layer_norm or group_norm mode)
+    -> layer_norm -> Linear 512 -> 1024
+    -> grouped-conv positional embedding (SamePad trim) + GELU, added
+    -> N pre-LN transformer layers -> final layer_norm   -> (B, frames, 1024)
+
+Module and attribute names are fairseq's (the state-dict keys of the
+reference's ``ssl_model.model``), so a reference checkpoint loads with
+``strict=True``. As in the JAX package, parameters stay float32 and every
+matmul and convolution runs in the compute dtype, while LayerNorm and
+GroupNorm compute their statistics and normalisation in float32.
+
+The attention follows the JAX branch structure: in eval with a (b)f16
+compute dtype and ``fast_softmax`` on, the bf16 softmax stays plain PyTorch
+(plain einsums in JAX too); every other case goes through
+:func:`rtdsd_tpu_torch.ops.attention.mha_small_t`, the port of the Pallas
+kernel, which is the CUDA kernel on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rtdsd_tpu_torch.ops import fastgelu
+from rtdsd_tpu_torch.ops.attention import mha_small_t
+
+LN_EPS = 1e-5
+_HALF = (torch.bfloat16, torch.float16)
+
+
+@dataclasses.dataclass(frozen=True)
+class Wav2Vec2Config:
+    """Same fields and defaults as the JAX package's config, so one config
+    file drives both. Fields that only shape training or the TPU program
+    (``scan_unroll``, ``conv_impl``, ``remat_*``, ``fast_softmax_train``)
+    have nothing to do in the port's eval forward; ``w8``, ``a8`` and
+    ``conv_segments > 1`` are not ported yet and raise."""
+
+    conv_layers: Tuple[Tuple[int, int, int], ...] = (
+        (512, 10, 5), (512, 3, 2), (512, 3, 2), (512, 3, 2), (512, 3, 2),
+        (512, 2, 2), (512, 2, 2))
+    extractor_mode: str = "layer_norm"
+    conv_bias: bool = True
+    encoder_embed_dim: int = 1024
+    encoder_ffn_dim: int = 4096
+    encoder_heads: int = 16
+    encoder_layers: int = 24
+    conv_pos: int = 128
+    conv_pos_groups: int = 16
+    dropout: float = 0.0
+    attention_dropout: float = 0.0
+    activation_dropout: float = 0.0
+    layer_norm_first: bool = True
+    scan_unroll: int = 1
+    conv_impl: str = "conv"
+    remat_policy: str = "full"
+    remat_save_every: int = 0
+    w8: bool = False
+    a8: bool = False
+    fast_gelu: bool = True
+    fast_softmax: bool = True
+    fast_softmax_train: bool = True
+    conv_segments: int = 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.encoder_embed_dim // self.encoder_heads
+
+    def num_frames(self, num_samples: int) -> int:
+        t = num_samples
+        for _, k, s in self.conv_layers:
+            t = (t - k) // s + 1
+        return t
+
+
+def make_w2v_cfg(num_layers: int = 24, **overrides) -> Wav2Vec2Config:
+    """Config with ``encoder_layers = num_layers``; unknown keys are
+    ignored, as the JAX package does."""
+    fields = {f.name for f in dataclasses.fields(Wav2Vec2Config)}
+    kw = {k: v for k, v in overrides.items() if k in fields}
+    if "conv_layers" in kw:
+        kw["conv_layers"] = tuple(tuple(int(x) for x in l)
+                                  for l in kw["conv_layers"])
+    cfg = Wav2Vec2Config(encoder_layers=num_layers, **kw)
+    if cfg.w8 or cfg.a8:
+        raise NotImplementedError("w8/w8a8 scoring is not yet ported")
+    if cfg.conv_segments > 1:
+        raise NotImplementedError("conv_segments is not yet ported")
+    if cfg.extractor_mode not in ("layer_norm", "group_norm"):
+        raise ValueError(f"unknown extractor_mode {cfg.extractor_mode!r}")
+    return cfg
+
+
+def middle_indices(array_length: int, n: int) -> List[int]:
+    start = (array_length - n) // 2
+    return list(range(start, start + n))
+
+
+def resolve_layer_indices(total: int, num_layers: int, order: str = "first",
+                          custom_order: Optional[Sequence[int]] = None
+                          ) -> List[int]:
+    """Layer-subset selection of the pruned students (first / last /
+    middle / custom order), as in the JAX package."""
+    if num_layers < 1 or num_layers > total:
+        raise ValueError(f"num_layers must be in [1, {total}]")
+    if order == "first":
+        return list(range(num_layers))
+    if order == "last":
+        return list(range(total - num_layers, total))
+    if order == "middle":
+        return middle_indices(total, num_layers)
+    if custom_order is None:
+        raise ValueError("custom order requires custom_order list of ints")
+    if not isinstance(custom_order, (list, tuple)):
+        raise ValueError("custom_order must be a list of integers")
+    bad = [i for i in custom_order if not (0 <= int(i) < total)]
+    if bad:
+        raise ValueError(f"custom_order indices {bad} out of range "
+                         f"[0, {total})")
+    return list(custom_order)
+
+
+def select_layers(state_dict: dict, indices: Sequence[int],
+                  prefix: str = "ssl_model.model.") -> dict:
+    """State dict of a pruned front-end from a full one: transformer layer
+    ``indices[k]`` becomes layer ``k``; every other key is kept."""
+    layer = f"{prefix}encoder.layers."
+    n_have = 1 + max((int(k[len(layer):].split(".")[0]) for k in state_dict
+                      if k.startswith(layer)), default=-1)
+    bad = [i for i in indices if not 0 <= int(i) < n_have]
+    if bad:
+        raise ValueError(f"layer indices {bad} out of range for a front-end "
+                         f"of {n_have} layers")
+    out = {k: v for k, v in state_dict.items() if not k.startswith(layer)}
+    for new, old in enumerate(indices):
+        src = f"{layer}{int(old)}."
+        for k, v in state_dict.items():
+            if k.startswith(src):
+                out[f"{layer}{new}.{k[len(src):]}"] = v
+    return out
+
+
+# ------------------------------------------------------------------ helpers
+
+def linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """A Linear in the compute dtype (inputs, weight and bias cast to it)."""
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype
+               ) -> torch.Tensor:
+    """LayerNorm computed in float32, returned in the compute dtype."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+                        ln.eps).to(dtype)
+
+
+def use_fast_gelu(cfg: Wav2Vec2Config, dtype: torch.dtype) -> bool:
+    """Rational-erf GELU only for (b)f16, as the JAX package gates it."""
+    return cfg.fast_gelu and dtype in _HALF
+
+
+# ------------------------------------------------------------------ modules
+
+class ConvFeatureExtractor(nn.Module):
+    """fairseq ConvFeatureExtractionModel. Per layer ``i``:
+    ``conv_layers.{i}.0`` is the conv; in layer_norm mode
+    ``conv_layers.{i}.2.1`` is the per-frame LayerNorm; in group_norm mode
+    ``conv_layers.0.2`` is the per-channel GroupNorm of layer 0 only."""
+
+    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        blocks, cin = [], 1
+        for i, (dim, k, stride) in enumerate(cfg.conv_layers):
+            conv = nn.Conv1d(cin, dim, k, stride=stride, bias=cfg.conv_bias)
+            if cfg.extractor_mode == "layer_norm":
+                norm = nn.Sequential(nn.Identity(), nn.LayerNorm(dim, eps=LN_EPS))
+            elif i == 0:
+                norm = nn.GroupNorm(dim, dim, eps=LN_EPS)
+            else:
+                norm = nn.Identity()
+            blocks.append(nn.Sequential(conv, nn.Identity(), norm))
+            cin = dim
+        self.conv_layers = nn.ModuleList(blocks)
+
+    def forward(self, wave: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        fast = use_fast_gelu(self.cfg, dt)
+        x = wave[:, None, :].to(dt)                          # (B, 1, T)
+        for block in self.conv_layers:
+            conv, norm = block[0], block[2]
+            bias = None if conv.bias is None else conv.bias.to(dt)
+            x = F.conv1d(x, conv.weight.to(dt), bias, stride=conv.stride)
+            if isinstance(norm, nn.GroupNorm):
+                x = F.group_norm(x.float(), norm.num_groups, norm.weight,
+                                 norm.bias, norm.eps).to(dt)
+            elif isinstance(norm, nn.Sequential):
+                x = layer_norm(x.transpose(1, 2), norm[1], dt).transpose(1, 2)
+            x = fastgelu.gelu(x, fast=fast)
+        return x.transpose(1, 2)                             # (B, frames, C)
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.q_proj = nn.Linear(dim, dim)
+        self.k_proj = nn.Linear(dim, dim)
+        self.v_proj = nn.Linear(dim, dim)
+        self.out_proj = nn.Linear(dim, dim)
+
+
+class TransformerLayer(nn.Module):
+    """Pre-LN fairseq TransformerSentenceEncoderLayer, eval mode."""
+
+    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        d = cfg.encoder_embed_dim
+        self.self_attn = SelfAttention(d)
+        self.self_attn_layer_norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.fc1 = nn.Linear(d, cfg.encoder_ffn_dim)
+        self.fc2 = nn.Linear(cfg.encoder_ffn_dim, d)
+        self.final_layer_norm = nn.LayerNorm(d, eps=LN_EPS)
+
+    def attention(self, q, k, v) -> torch.Tensor:
+        cfg, dt = self.cfg, self.dtype
+        if cfg.fast_softmax and dt in _HALF:
+            # bf16 softmax: max-subtract in bf16, exp in f32, normalise in bf16
+            s = torch.einsum("bqhd,bkhd->bhqk", q * cfg.head_dim ** -0.5, k)
+            e = torch.exp((s - s.amax(-1, keepdim=True)).float()).to(dt)
+            probs = e / e.sum(-1, keepdim=True).to(dt)
+            return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        return mha_small_t(q, k, v)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg, dt = self.cfg, self.dtype
+        at = self.self_attn
+        b, t, d = x.shape
+        h = layer_norm(x, self.self_attn_layer_norm, dt)
+        shape = (b, t, cfg.encoder_heads, cfg.head_dim)
+        q = linear(h, at.q_proj, dt).view(shape)
+        k = linear(h, at.k_proj, dt).view(shape)
+        v = linear(h, at.v_proj, dt).view(shape)
+        attn = self.attention(q, k, v).reshape(b, t, d)
+        x = x + linear(attn, at.out_proj, dt)
+        h = layer_norm(x, self.final_layer_norm, dt)
+        h = fastgelu.gelu(linear(h, self.fc1, dt), fast=use_fast_gelu(cfg, dt))
+        return x + linear(h, self.fc2, dt)
+
+
+class TransformerEncoder(nn.Module):
+    """fairseq ``encoder``: ``pos_conv.0`` (grouped conv, weight norm folded
+    into a plain weight), ``layers.{i}``, ``layer_norm``."""
+
+    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        d = cfg.encoder_embed_dim
+        self.pos_conv = nn.Sequential(nn.Conv1d(
+            d, d, cfg.conv_pos, padding=cfg.conv_pos // 2,
+            groups=cfg.conv_pos_groups))
+        self.layers = nn.ModuleList(TransformerLayer(cfg, dtype)
+                                    for _ in range(cfg.encoder_layers))
+        self.layer_norm = nn.LayerNorm(d, eps=LN_EPS)
+
+    def positional(self, x: torch.Tensor) -> torch.Tensor:
+        dt, conv = self.dtype, self.pos_conv[0]
+        xt, w, b = x.transpose(1, 2), conv.weight.to(dt), conv.bias.to(dt)
+        if x.device.type == "cpu" and dt in _HALF:
+            # PyTorch's oneDNN CPU kernel returns wrong values for a grouped
+            # bf16 conv1d with an even kernel (seen in torch 2.13); the same
+            # bf16 operands convolved in float32 give a bf16 conv's result
+            xt, w, b = xt.float(), w.float(), b.float()
+        pos = F.conv1d(xt, w, b, padding=conv.padding,
+                       groups=conv.groups).to(dt)
+        if self.cfg.conv_pos % 2 == 0:
+            pos = pos[:, :, :-1]      # fairseq SamePad trims one step for even k
+        return fastgelu.gelu(pos.transpose(1, 2),
+                             fast=use_fast_gelu(self.cfg, dt))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.positional(x)
+        if not self.cfg.layer_norm_first:
+            x = layer_norm(x, self.layer_norm, self.dtype)
+        for layer in self.layers:
+            x = layer(x)
+        if self.cfg.layer_norm_first:
+            x = layer_norm(x, self.layer_norm, self.dtype)
+        return x
+
+
+class Wav2Vec2Encoder(nn.Module):
+    """Full XLSR front-end: wave (B, T) -> features (B, frames, D)."""
+
+    def __init__(self, cfg: Wav2Vec2Config = Wav2Vec2Config(),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        c = cfg.conv_layers[-1][0]
+        self.feature_extractor = ConvFeatureExtractor(cfg, dtype)
+        self.layer_norm = nn.LayerNorm(c, eps=LN_EPS)
+        self.post_extract_proj = nn.Linear(c, cfg.encoder_embed_dim)
+        self.encoder = TransformerEncoder(cfg, dtype)
+
+    def forward(self, wave: torch.Tensor) -> torch.Tensor:
+        feats = self.feature_extractor(wave)
+        x = layer_norm(feats, self.layer_norm, self.dtype)
+        x = linear(x, self.post_extract_proj, self.dtype)
+        return self.encoder(x)

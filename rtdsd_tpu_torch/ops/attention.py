@@ -1,0 +1,86 @@
+"""Small-T multi-head self-attention: the port of
+``rtdsd_tpu/ops/pallas/attention.py::mha_small_t``.
+
+:func:`mha_small_t` takes (B, T, H, D) query, key and value (the BTHD layout
+of ``jax.nn.dot_product_attention``) and returns the attention output in the
+same layout and dtype. On a CUDA tensor it launches the hand-written kernel
+in ``csrc/mha_small_t.cu`` (see the note at its top for the design); on a CPU
+tensor it runs :func:`mha_small_t_reference`, the plain PyTorch version of
+the same arithmetic.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from rtdsd_tpu_torch.ops import build
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {name: [_P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P]
+               for name in ("mha_small_t_f32", "mha_small_t_bf16")}
+HEAD_DIMS = (16, 32, 64, 128)
+SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
+_WARPS = 8
+
+
+def mha_small_t_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version: f32 scores and softmax, p rounded to V's dtype
+    after normalising, f32 accumulation of p V, output in the input dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.softmax(s, dim=-1).to(v.dtype).float()
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def smem_bytes(t: int, d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block: K and V rows padded by a 32-bit
+    word, plus one f32 score row per warp."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return 2 * t * (d + 4 // size) * size + _WARPS * t * 4
+
+
+def mha_small_t(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale: Optional[float] = None) -> torch.Tensor:
+    """Self-attention over (B, T, H, D) inputs with small T; default scale
+    ``D ** -0.5``. Launches the CUDA kernel for CUDA tensors."""
+    if q.device.type == "cpu":
+        return mha_small_t_reference(q, k, v, scale)
+    b, t, h, d = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v shapes differ: {q.shape} {k.shape} {v.shape}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32,
+                                                             torch.bfloat16):
+        raise TypeError(f"mha_small_t takes float32 or bfloat16 q, k, v of one "
+                        f"dtype; got {q.dtype} {k.dtype} {v.dtype}")
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("q, k, v must lie on one CUDA device")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported (have {HEAD_DIMS})")
+    if any(x.stride(3) != 1 for x in (q, k, v)):
+        raise ValueError("the head dimension of q, k, v must be contiguous")
+    if smem_bytes(t, d, q.dtype) > SMEM_LIMIT:
+        raise ValueError(f"T={t} is too long for mha_small_t's shared memory")
+    if scale is None:
+        scale = d ** -0.5
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_int64 * 9)(*(s for x in (q, k, v)
+                                     for s in x.stride()[:3]))
+    lib = build.library("mha_small_t", _SIGNATURES)
+    fn = lib.mha_small_t_bf16 if q.dtype == torch.bfloat16 \
+        else lib.mha_small_t_f32
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, t, h, d, ctypes.cast(strides, ctypes.c_void_p),
+                float(scale), stream)
+    build.check(rc, "mha_small_t")
+    mha_small_t.launches += 1
+    return out
+
+
+mha_small_t.launches = 0

@@ -1,0 +1,169 @@
+"""The port's kernel functions against the JAX package's.
+
+On the CPU the port's wrappers run their plain PyTorch versions; these are
+held against the JAX Pallas functions run in interpret mode (as
+``tests/test_pallas.py`` runs them) and against ``jax.nn.dot_product_attention``.
+Inputs are made with ``numpy.random.default_rng``.
+
+Tests marked ``gpu`` hold each CUDA kernel against its plain version on the
+card; without a CUDA device they skip (``python -m pytest -m gpu
+tests/test_torch_ops.py`` on the GPU machine runs them).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rtdsd_tpu_torch.ops import attention, build, gat
+
+
+@pytest.fixture
+def jx():
+    """The JAX side, imported here so that the gpu tests of this file also
+    collect on a machine without JAX."""
+    jax = pytest.importorskip("jax")
+    from rtdsd_tpu.ops.pallas import attention as jattn, gat as jgat
+
+    return jax, jax.numpy, jattn.mha_small_t, jgat
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _qkv(seed, shape, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(shape) * 0.5).astype(dtype) for _ in range(3)]
+
+
+# ------------------------------------------------------------- attention
+
+@pytest.mark.parametrize("scale", [None, 0.3])
+def test_mha_plain_matches_jax_f32(jx, scale):
+    jax, jnp, jax_mha, _ = jx
+    q, k, v = _qkv(0, (2, 37, 4, 16))           # T=37: not a multiple of 16
+    got = attention.mha_small_t(*(torch.from_numpy(a) for a in (q, k, v)),
+                                scale=scale).numpy()
+    want = np.asarray(jax_mha(*(jnp.asarray(a) for a in (q, k, v)),
+                              scale=scale, interpret=True))
+    dpa = np.asarray(jax.nn.dot_product_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), scale=scale))
+    # f32 softmax attention, summation order only
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got, dpa, rtol=1e-4, atol=1e-5)
+
+
+def test_mha_plain_matches_jax_bf16(jx):
+    _, jnp, jax_mha, _ = jx
+    q, k, v = (jnp.asarray(a, jnp.bfloat16) for a in _qkv(1, (2, 37, 4, 16)))
+    want = np.asarray(jax_mha(q, k, v, interpret=True).astype(jnp.float32))
+    got = attention.mha_small_t(
+        *(torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16()
+          for a in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    # bf16 output: one rounding of p and of the output, |out| <~ 1.5, so a
+    # couple of bf16 steps (ulp(1) = 7.8e-3)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=1e-2)
+
+
+def test_mha_cpu_path_launches_nothing():
+    before = attention.mha_small_t.launches
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, (1, 5, 2, 16)))
+    torch.testing.assert_close(attention.mha_small_t(q, k, v),
+                               attention.mha_small_t_reference(q, k, v))
+    assert attention.mha_small_t.launches == before
+
+
+# ------------------------------------------------------------------ GAT
+
+def _gat_inputs(seed, b, n, d, do):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, n, d)).astype(np.float32)
+    w = (rng.standard_normal((d, do)) * 0.3).astype(np.float32)
+    bias = (rng.standard_normal(do) * 0.1).astype(np.float32)
+    vecs = [(rng.standard_normal((do, 1)) * 0.3).astype(np.float32)
+            for _ in range(3)]
+    return x, w, bias, vecs
+
+
+@pytest.mark.parametrize("n", [13, 16])          # 13: not a multiple of 8
+def test_gat_plain_matches_jax(jx, n):
+    _, jnp, _, jgat = jx
+    x, w, bias, (a, _, _) = _gat_inputs(3, 2, n, 16, 8)
+    got = gat.fused_gat_aggregate(*(torch.from_numpy(t) for t in (x, w, bias, a)),
+                                  temperature=2.0).numpy()
+    want = np.asarray(jgat.fused_gat_aggregate(*(jnp.asarray(t) for t in (x, w, bias, a)),
+                              temperature=2.0, interpret=True))
+    # the tolerance of tests/test_pallas.py's f32 GAT checks
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n1", [7, 8, 9])         # both sides of a block edge
+def test_htrg_plain_matches_jax(jx, n1):
+    _, jnp, _, jgat = jx
+    x, w, bias, (w11, w22, w12) = _gat_inputs(4, 2, 19, 16, 8)
+    args = (x, w, bias, w11, w22, w12)
+    got = gat.fused_htrg_gat_aggregate(*(torch.from_numpy(t) for t in args),
+                                       n1=n1, temperature=100.0).numpy()
+    want = np.asarray(jgat.fused_htrg_gat_aggregate(*(jnp.asarray(t) for t in args), n1=n1,
+                               temperature=100.0, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_kernel_sources_and_build_dir():
+    assert build.sources() == ["gat", "mha_small_t"]
+    path = build.library_path("gat")
+    assert path.startswith(build.BUILD_DIR) and path.endswith(".so")
+
+
+# ------------------------------------------------- kernels on the card
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-4, 1e-5),
+                                             (torch.bfloat16, 1e-2, 1e-2)])
+@pytest.mark.parametrize("t,h,d", [(199, 16, 64), (37, 4, 16), (50, 2, 128)])
+def test_mha_kernel_matches_plain(cuda, dtype, rtol, atol, t, h, d):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    # q, k, v as strided views of one fused projection, as a caller may pass
+    qkv = torch.randn((3, t, h, d), generator=g, device=cuda, dtype=dtype)
+    qkv = qkv.expand(2, 3, t, h, d).clone().transpose(0, 1)
+    q, k, v = qkv[0] * 0.5, qkv[1], qkv[2]
+    before = attention.mha_small_t.launches
+    got = attention.mha_small_t(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.mha_small_t.launches == before + 1
+    want = attention.mha_small_t_reference(q, k, v)
+    # f32: summation order; bf16: the output may round one step apart
+    # (a bf16 step is 2^-8 of the value, 7.8e-3 at 1)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,d,do", [(16, 42, 64, 64), (16, 66, 64, 64),
+                                      (3, 13, 16, 8)])
+def test_gat_kernel_matches_plain(cuda, b, n, d, do):
+    x, w, bias, (a, _, _) = _gat_inputs(5, b, n, d, do)
+    to = lambda t: torch.from_numpy(t).to(cuda)
+    args = [to(x), to(w), to(bias), to(a)]
+    got = gat.fused_gat_aggregate(*args, temperature=2.0)
+    torch.cuda.synchronize()
+    want = gat.fused_gat_aggregate_reference(*args, temperature=2.0)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,d,do,n1", [(16, 54, 64, 32, 33),
+                                         (16, 26, 32, 32, 16),
+                                         (2, 19, 16, 8, 9)])
+def test_htrg_kernel_matches_plain(cuda, b, n, d, do, n1):
+    x, w, bias, vecs = _gat_inputs(6, b, n, d, do)
+    to = lambda t: torch.from_numpy(t).to(cuda)
+    args = [to(x), to(w), to(bias), *(to(t) for t in vecs)]
+    got = gat.fused_htrg_gat_aggregate(*args, n1=n1, temperature=100.0)
+    torch.cuda.synchronize()
+    want = gat.fused_htrg_gat_aggregate_reference(*args, n1=n1,
+                                                  temperature=100.0)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
