@@ -5,19 +5,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build of every CUDA kernel from ``rtdsd_tpu_torch/csrc`` (parallel nvcc);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the main path gives it (batch 16), with times of the kernel, the plain
+   its path gives it (batch 16), with times of the kernel, the plain
    version, the least time the card could take (bound) and, for attention,
    ``scaled_dot_product_attention`` as the library yardstick (timed here,
-   never used by the port);
-4. the main path: a full-width XLSR_AASIST (24 layers, width 1024, random
-   weights from seed 0) saved as a reference-named ``.pt``, 32 synthetic
-   four-second clips scored in bf16 through ``rtdsd_tpu_torch.cli.main``
-   with ``fused_gat: true`` and ``fast_softmax: false``; the kernels' launch
-   counters must read 24, 2 and 4 per batch;
+   never used by the port): attention, the two GAT kernels,
+   ``quantize_int8`` at the flagship's three matrix shapes in both rounding
+   modes (bit for bit, plus statistics of the stochastic mode), ``ln_gelu``
+   and ``conv_ln_gelu_grouped`` at the six front-end layer geometries;
+4. the paths, each with every launch counter set to 0 just before it and
+   read just after:
+   a. the main path: a full-width XLSR_AASIST (24 layers, width 1024,
+      random weights from seed 0) saved as a reference-named ``.pt``, 32
+      synthetic four-second clips scored in bf16 through
+      ``rtdsd_tpu_torch.cli.main`` with ``fused_gat: true`` and
+      ``fast_softmax: false``; the counters must read 24, 2 and 4 per batch;
+   b. int8 scoring: the same clips and ``.pt`` through the CLI with
+      ``--w8`` and with ``--w8a8``: the same counts, and 144 launches of
+      ``quantize_int8`` (24 layers x 6 matmuls) per run;
+   c. the op ``fused_conv_frontend`` (not wired into the encoder, as in the
+      JAX package) on (16, 64000) waves with the model's front-end weights,
+      against the port's ``ConvFeatureExtractor``: 1 ``ln_gelu`` and 6
+      ``conv_ln_gelu_grouped`` launches;
 5. one full-width float32 batch with the kernels against the same batch
    with every kernel swapped for its plain version (TF32 off): logits agree;
-   then steady-state ms per clip (bf16 and f32) and a torch.profiler
-   breakdown of one bf16 batch's device time.
+   then steady-state ms per clip (f32 at batch 16; bf16, w8 and w8a8 at
+   batch 16 and batch 1, timed in turns over five rounds) and
+   torch.profiler breakdowns of the device time of one bf16 batch of 16
+   and of one w8a8 batch of 16 and of 1.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit line, and as its last line ``{"ok": true, "device": {...}}``. Scratch
@@ -29,6 +43,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -48,6 +63,16 @@ PEAK = {"bf16": 989e12, "f32": 67e12}   # dense FLOP/s, published
 ATTN_TOL = {"f32": (1e-4, 1e-5), "bf16": (1e-2, 1e-2)}
 GAT_TOL = (1e-4, 1e-5)      # f32 throughout, summation order only
 LOGIT_TOL = 1e-3            # 24 f32 layers + graph back-end, order only
+CONV_TOL = ATTN_TOL         # f32 summation order; bf16 one output step
+FRONTEND_F32_ATOL = 5e-4    # rational vs exact erf over 7 layers
+                            # (tests/test_pallas.py:171)
+QUANT_SHAPES = ((1024, 1024), (1024, 4096), (4096, 1024))   # (in, out)
+QUANT_Z = 6.0               # |mean rounding error| in standard errors
+STEADY_REPEATS = 5          # rounds of the int8-vs-bf16 steady timings
+# (Cin, Cout, k, s, T in) of front-end layers 1-6 on 64000 samples
+CONV_LAYERS = tuple((512, 512, k, 2, t) for k, t in
+                    ((3, 12799), (3, 6399), (3, 3199), (3, 1599), (2, 799),
+                     (2, 399)))
 
 
 def log(msg: str) -> None:
@@ -172,6 +197,130 @@ def check_gat(dev, htrg: bool) -> dict:
     return rec
 
 
+def check_quant(dev) -> dict:
+    """quantize_int8 at the flagship's matrix shapes: kernel and plain
+    version bit for bit in both rounding modes; the stochastic mode's error
+    below one scale step and unbiased per column."""
+    from rtdsd_tpu_torch.ops.quant import quantize_int8, quantize_int8_reference
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    rec = None
+    for n, (r, c) in enumerate(QUANT_SHAPES):
+        x = torch.randn((r, c), generator=g, device=dev) * r ** -0.5
+        seed = 7919 * (n + 1)
+        for stochastic in (False, True):
+            got = quantize_int8(x, seed, stochastic)
+            want = quantize_int8_reference(x, seed, stochastic)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise RuntimeError(f"quantize_int8 ({r}, {c}) stochastic="
+                                   f"{stochastic}: kernel != plain version")
+        vals, scales = got                       # the stochastic mode
+        scaled = x.double() / scales.double()
+        err = vals.double() - scaled
+        var = (scaled - scaled.floor()) * (scaled.floor() + 1 - scaled)
+        z_col = (err.mean(0) / (var.sum(0).sqrt() / r).clamp_min(1e-30)).abs()
+        z_all = (err.mean() / (var.sum().sqrt() / err.numel())).abs().item()
+        worst = err.abs().max().item()
+        log(f"quantize_int8 ({r}, {c}): kernel == plain in both modes; "
+            f"stochastic max|q - x/scale| {worst:.6f} (< 1), per-column "
+            f"|mean err| max {z_col.max().item():.2f} SE, whole matrix "
+            f"{z_all:.2f} SE (limit {QUANT_Z})")
+        if worst >= 1.0 or z_col.max().item() > QUANT_Z or z_all > QUANT_Z:
+            raise RuntimeError("stochastic rounding out of its bounds")
+        ms = device_ms(lambda: quantize_int8(x, seed))
+        plain = device_ms(lambda: quantize_int8_reference(x, seed, True))
+        bnd, by = bound_ms(4 * r * c + r * c + 4 * c, 0, "f32")
+        log(f"  kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
+            f"({by})")
+        this = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd,
+                    bound_by=by, library_ms=None,
+                    shape=f"x ({r},{c}) f32, stochastic")
+        if rec is None or this["ms"] > rec["ms"]:
+            rec = this
+    return rec
+
+
+def check_ln_gelu(dev) -> dict:
+    from rtdsd_tpu_torch.ops.convstack import ln_gelu, ln_gelu_reference
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    shape = (B, 12799, 512)                 # layer 0's output at 4 s
+    gamma = 1 + 0.1 * torch.randn(512, generator=g, device=dev)
+    beta = 0.1 * torch.randn(512, generator=g, device=dev)
+    x32 = torch.randn(shape, generator=g, device=dev) * 2
+    rec = {}
+    for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x = x32.to(dtype)
+        got, want = ln_gelu(x, gamma, beta), ln_gelu_reference(x, gamma, beta)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rtol, atol = CONV_TOL[kind]
+        log(f"ln_gelu {kind} {shape}: max|d| {err:.3g} (rtol {rtol}, atol "
+            f"{atol})")
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+        ms = device_ms(lambda: ln_gelu(x, gamma, beta))
+        plain = device_ms(lambda: ln_gelu_reference(x, gamma, beta))
+        bnd, by = bound_ms(2 * x.numel() * x.element_size() + 2 * 512 * 4,
+                           0, kind)
+        log(f"  kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
+            f"({by})")
+        rec[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                         bound_by=by, library_ms=None,
+                         shape=f"x {shape} {kind}")
+    del x32
+    return rec["bf16"]
+
+
+def check_conv(dev) -> dict:
+    """conv_ln_gelu_grouped at each front-end layer geometry, batch 16;
+    the reported record is the heaviest layer (k=3, 12799 -> 6399) in bf16."""
+    from rtdsd_tpu_torch.ops.convstack import (conv_ln_gelu_grouped,
+                                               conv_ln_gelu_grouped_reference)
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    recs, total = [], 0.0
+    for cin, cout, k, s, t in CONV_LAYERS:
+        w = torch.randn((k, cin, cout), generator=g, device=dev) * (k * cin) ** -0.5
+        bias = 0.1 * torch.randn(cout, generator=g, device=dev)
+        gamma = 1 + 0.1 * torch.randn(cout, generator=g, device=dev)
+        beta = 0.1 * torch.randn(cout, generator=g, device=dev)
+        x32 = torch.randn((B, t, cin), generator=g, device=dev)
+        f_out = (t - k) // s + 1
+        for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            x = x32.to(dtype)
+            run = lambda: conv_ln_gelu_grouped(x, w, bias, gamma, beta, k=k, s=s)
+            ref = lambda: conv_ln_gelu_grouped_reference(x, w, bias, gamma,
+                                                         beta, k=k, s=s)
+            got, want = run(), ref()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            rtol, atol = CONV_TOL[kind]
+            log(f"conv_ln_gelu_grouped {kind} (B={B}, T={t}->{f_out}, "
+                f"k={k}, s={s}, {cin}->{cout}): max|d| {err:.3g} (rtol "
+                f"{rtol}, atol {atol})")
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                       atol=atol)
+            if kind == "f32":
+                continue
+            ms, plain = device_ms(run, iters=10), device_ms(ref, iters=10)
+            size = x.element_size()
+            nbytes = size * (B * t * cin + k * cin * cout + B * f_out * cout) \
+                + 4 * 3 * cout
+            bnd, by = bound_ms(nbytes, 2 * B * f_out * k * cin * cout, "bf16")
+            total += ms
+            log(f"  kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                f"{bnd:.4f} ms ({by})")
+            recs.append(dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                             bound_ms=bnd, bound_by=by, library_ms=None,
+                             shape=f"x ({B},{t},{cin}) w ({k},{cin},{cout}) "
+                                   f"s={s} bf16"))
+    log(f"conv_ln_gelu_grouped: all six layers at batch {B}, bf16: "
+        f"{total:.4f} ms")
+    return recs[0]
+
+
 # ------------------------------------------------------------ phase 4
 
 def random_reference_state_dict(model: torch.nn.Module, seed: int) -> dict:
@@ -248,27 +397,40 @@ def write_config(root: str, dtype: str, model: str = "XLSR_AASIST",
 
 
 def counters():
-    from rtdsd_tpu_torch.ops import attention, gat
+    from rtdsd_tpu_torch.ops import attention, convstack, gat, quant
 
     return (attention.mha_small_t, gat.fused_gat_aggregate,
-            gat.fused_htrg_gat_aggregate)
+            gat.fused_htrg_gat_aggregate, quant.quantize_int8,
+            convstack.ln_gelu, convstack.conv_ln_gelu_grouped)
 
 
-def main_path(ckpt: str) -> dict:
+def reset_counters() -> None:
+    for fn in counters():
+        fn.launches = 0
+
+
+def read_counters() -> dict:
+    return {fn.__name__: fn.launches for fn in counters()}
+
+
+def main_path(ckpt: str, mode: str = "") -> dict:
+    """Score the track through the CLI in bf16, plain (``mode`` "") or with
+    ``--w8`` / ``--w8a8``; check the scores and the launch counts."""
     from rtdsd_tpu_torch.cli import main as cli
 
     cfg = write_config(WORK, "bfloat16")
-    scores = os.path.join(WORK, "scores_la21.txt")
+    tag = mode or "bf16"
+    scores = os.path.join(WORK, f"scores_la21_{tag}.txt")
     if os.path.exists(scores):
         os.remove(scores)
-    for fn in counters():
-        fn.launches = 0
+    reset_counters()
     t0 = time.perf_counter()
     cli.main(["--config", cfg, "--is_eval", "--is_score", "--ckpt", ckpt,
-              "--tracks", "LA21"])
+              "--tracks", "LA21", "--comment", tag]
+             + ([f"--{mode}"] if mode else []))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters()}
+    launches = read_counters()
     with open(scores) as f:
         lines = f.read().splitlines()
     vals = np.array([float(l.split(" ")[1]) for l in lines])
@@ -277,13 +439,70 @@ def main_path(ckpt: str) -> dict:
                            f"{np.isfinite(vals).sum()}")
     batches = -(-N_CLIPS // B)
     want = {"mha_small_t": 24 * batches, "fused_gat_aggregate": 2 * batches,
-            "fused_htrg_gat_aggregate": 4 * batches}
-    log(f"main path: {len(lines)} finite scores; launches {launches} "
-        f"(want {want}); CLI wall {wall:.2f} s incl. model build and load")
+            "fused_htrg_gat_aggregate": 4 * batches,
+            "quantize_int8": 144 if mode else 0,
+            "ln_gelu": 0, "conv_ln_gelu_grouped": 0}
+    log(f"{tag} path: {len(lines)} finite scores; launches {launches} "
+        f"(want {want}); CLI wall {wall:.2f} s incl. model build, load"
+        f"{' and quantization' if mode else ''}")
     if launches != want:
         raise RuntimeError(f"kernel launches {launches} != {want}")
     return {"launches": launches, "scores": dict(
         (l.split(" ")[0], float(l.split(" ")[1])) for l in lines)}
+
+
+def frontend_path(sd: dict, dev) -> dict:
+    """The op fused_conv_frontend at full width on the model's front-end
+    weights, against the port's unfused ConvFeatureExtractor."""
+    from rtdsd_tpu_torch.models.convert import load_reference_state_dict
+    from rtdsd_tpu_torch.models.wav2vec2 import (ConvFeatureExtractor,
+                                                 Wav2Vec2Config)
+    from rtdsd_tpu_torch.ops.convstack import fused_conv_frontend, supports_fused
+
+    cfg = Wav2Vec2Config()
+    if not supports_fused(cfg.conv_layers, cfg.extractor_mode):
+        raise RuntimeError("supports_fused rejects the flagship front-end")
+    prefix = "ssl_model.model.feature_extractor."
+    fe_sd = {k[len(prefix):]: v for k, v in load_reference_state_dict(sd).items()
+             if k.startswith(prefix)}
+    lp = [{"conv": {"kernel": fe_sd[f"conv_layers.{i}.0.weight"].permute(2, 1, 0).to(dev),
+                    "bias": fe_sd[f"conv_layers.{i}.0.bias"].to(dev)},
+           "ln": {"scale": fe_sd[f"conv_layers.{i}.2.1.weight"].to(dev),
+                  "bias": fe_sd[f"conv_layers.{i}.2.1.bias"].to(dev)}}
+          for i in range(len(cfg.conv_layers))]
+    waves = batch_waves(dev)
+    out = {}
+    with torch.inference_mode():
+        for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            fe = ConvFeatureExtractor(cfg, dtype)
+            fe.load_state_dict(fe_sd, strict=True)
+            out[kind] = fe.to(dev)(waves).float()
+        reset_counters()
+        fused = {kind: fused_conv_frontend(waves, lp, cfg.conv_layers, dtype=dtype)
+                 .float() for kind, dtype in (("f32", torch.float32),
+                                              ("bf16", torch.bfloat16))}
+        torch.cuda.synchronize()
+    launches = read_counters()
+    want = {"mha_small_t": 0, "fused_gat_aggregate": 0,
+            "fused_htrg_gat_aggregate": 0, "quantize_int8": 0, "ln_gelu": 2,
+            "conv_ln_gelu_grouped": 12}
+    err = {k: (fused[k] - out[k]).abs().max().item() for k in fused}
+    gap = (out["bf16"] - out["f32"]).abs().max().item()
+    bf16_tol = 2 * gap + 0.02
+    log(f"fused_conv_frontend (B={B}, {SAMPLES} samples) -> "
+        f"{tuple(fused['bf16'].shape)}: f32 vs ConvFeatureExtractor max|d| "
+        f"{err['f32']:.3g} (atol {FRONTEND_F32_ATOL}); bf16 max|d| "
+        f"{err['bf16']:.3g} (tol {bf16_tol:.3g}: twice the unfused module's "
+        f"bf16-vs-f32 gap {gap:.3g}, + 0.02), median "
+        f"{(fused['bf16'] - out['bf16']).abs().median().item():.3g}; "
+        f"launches {launches} (want {want}, f32 and bf16 runs)")
+    if fused["bf16"].shape != out["bf16"].shape:
+        raise RuntimeError("fused front-end frame count differs")
+    if err["f32"] > FRONTEND_F32_ATOL or err["bf16"] > bf16_tol:
+        raise RuntimeError("fused front-end disagrees with the module")
+    if launches != want:
+        raise RuntimeError(f"kernel launches {launches} != {want}")
+    return {k: v // 2 for k, v in launches.items()}     # per front-end call
 
 
 def batch_waves(dev) -> torch.Tensor:
@@ -296,6 +515,7 @@ def batch_waves(dev) -> torch.Tensor:
 
 
 def steady_ms_per_clip(model, waves) -> float:
+    """Forward time per clip, CUDA events over 5 forwards after a warm-up."""
     with torch.inference_mode():
         model(waves)
         torch.cuda.synchronize()
@@ -317,7 +537,7 @@ KERNEL_CLASSES = (("mha_small_t kernel", ("mha_small_t_kernel",)),
                   ("elementwise", ("elementwise",)))
 
 
-def profile_forward(model, waves, top: int = 12) -> None:
+def profile_forward(model, waves, top: int = 12, label: str = "bf16") -> None:
     """Where one batch's forward spends device time: kernels by device time
     (torch.profiler / CUPTI), grouped by class, and the device's busy share
     of the wall time."""
@@ -337,7 +557,7 @@ def profile_forward(model, waves, top: int = 12) -> None:
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(r[1] for r in rows)
-    log(f"profile, one bf16 batch of {waves.shape[0]}: wall {wall_ms:.2f} ms, "
+    log(f"profile, one {label} batch of {waves.shape[0]}: wall {wall_ms:.2f} ms, "
         f"kernels {busy:.2f} ms (device busy {100 * busy / wall_ms:.1f}%), "
         f"{sum(r[2] for r in rows)} kernel launches")
     classes = {}
@@ -373,14 +593,22 @@ def plain_kernels():
             setattr(m, n, f)
 
 
-def build_model(sd: dict, dtype: torch.dtype, dev, fast_softmax=False):
+def build_model(sd: dict, dtype: torch.dtype, dev, fast_softmax=False,
+                mode: str = ""):
+    """The main-path model; ``mode`` "w8" / "w8a8" quantizes the weights on
+    the card, as the CLI's ``--w8`` / ``--w8a8`` do."""
     from rtdsd_tpu_torch.models.convert import load_reference_state_dict
+    from rtdsd_tpu_torch.models.quantize import quantize_state_dict
     from rtdsd_tpu_torch.models.registry import get_model
 
     spec = get_model("XLSR_AASIST", dtype=dtype, fused_gat=True,
-                     w2v={"fast_softmax": fast_softmax})
-    spec.module.load_state_dict(load_reference_state_dict(sd), strict=True)
-    return spec.module.to(dev).eval()
+                     w2v={"fast_softmax": fast_softmax, "w8": bool(mode),
+                          "a8": mode == "w8a8"})
+    ref = load_reference_state_dict(sd)
+    if mode:
+        ref = quantize_state_dict({k: v.to(dev) for k, v in ref.items()})
+    spec.module.to(dev).load_state_dict(ref, strict=True)
+    return spec.module.eval()
 
 
 def main() -> int:
@@ -412,7 +640,16 @@ def main() -> int:
                                        "rtdsd_tpu/ops/pallas/gat.py:99"),
                "fused_htrg_gat_aggregate": (check_gat(dev, htrg=True), "cuda",
                                             "rtdsd_tpu_torch/csrc/gat.cu",
-                                            "rtdsd_tpu/ops/pallas/gat.py:183")}
+                                            "rtdsd_tpu/ops/pallas/gat.py:183"),
+               "quantize_int8": (check_quant(dev), "cuda",
+                                 "rtdsd_tpu_torch/csrc/quant.cu",
+                                 "rtdsd_tpu/ops/pallas/quant.py:71"),
+               "ln_gelu": (check_ln_gelu(dev), "cuda",
+                           "rtdsd_tpu_torch/csrc/convstack.cu",
+                           "rtdsd_tpu/ops/pallas/convstack.py:83"),
+               "conv_ln_gelu_grouped": (check_conv(dev), "cuda",
+                                        "rtdsd_tpu_torch/csrc/convstack.cu",
+                                        "rtdsd_tpu/ops/pallas/convstack.py:152")}
 
     os.makedirs(WORK, exist_ok=True)
     t0 = time.perf_counter()
@@ -427,6 +664,13 @@ def main() -> int:
         f" M values, saved in {time.perf_counter() - t0:.1f} s")
 
     run = main_path(ckpt)
+    int8_runs = {mode: main_path(ckpt, mode) for mode in ("w8", "w8a8")}
+    for mode, r in int8_runs.items():
+        d = max(abs(r["scores"][u] - run["scores"][u]) for u in run["scores"])
+        log(f"{mode} scores vs bf16 scores (random weights; information, not "
+            f"a gate): max|d| {d:.4g}, |bf16 score| max "
+            f"{max(abs(v) for v in run['scores'].values()):.4g}")
+    frontend_launches = frontend_path(sd, dev)
 
     # phase 5: one f32 batch, kernels against plain versions, TF32 off
     waves = batch_waves(dev)
@@ -460,7 +704,23 @@ def main() -> int:
         raise RuntimeError("CLI scores differ from the same model's forward")
 
     profile_forward(bf16, waves)
-    del bf16
+    models = {"bf16": bf16,
+              **{mode: build_model(sd, torch.bfloat16, dev, mode=mode)
+                 for mode in ("w8", "w8a8")}}
+    profile_forward(models["w8a8"], waves, label="w8a8")
+    profile_forward(models["w8a8"], waves[:1], top=0, label="w8a8")
+    # the three modes in turns, STEADY_REPEATS rounds: the host launches
+    # every kernel, and at batch 1 its speed, which varies between machines
+    # and over a run, sets the time
+    steady = {(m, b): [] for m in models for b in (B, 1)}
+    for _ in range(STEADY_REPEATS):
+        for (m, b), times in steady.items():
+            times.append(steady_ms_per_clip(models[m], waves[:b]))
+    del models, bf16
+    log(f"steady forward, ms/clip (bf16 compute), median [min, max] of "
+        f"{STEADY_REPEATS} rounds: " + ", ".join(
+            f"{m} batch {b} {statistics.median(t):.4f} [{min(t):.4f}, "
+            f"{max(t):.4f}]" for (m, b), t in steady.items()))
     # the JAX default, fast_softmax: true, keeps the bf16 softmax in plain
     # einsums (no kernel): its cost beside the kernel path
     fast_ms = steady_ms_per_clip(
@@ -468,8 +728,16 @@ def main() -> int:
     log(f"steady forward, batch {B}, bf16 with fast_softmax (plain bf16 "
         f"softmax, no attention kernel): {fast_ms:.4f} ms/clip")
 
+    launches = dict(run["launches"])
+    launches["quantize_int8"] = int8_runs["w8"]["launches"]["quantize_int8"]
+    launches.update({k: frontend_launches[k]
+                     for k in ("ln_gelu", "conv_ln_gelu_grouped")})
+    paths = {"quantize_int8": "--w8 CLI run (weights quantized at load)",
+             "ln_gelu": "fused_conv_frontend, one bf16 call",
+             "conv_ln_gelu_grouped": "fused_conv_frontend, one bf16 call"}
     kernels = [dict(name=k, route=route, source=src, replaces=rep,
-                    launches=run["launches"][k], **rec)
+                    launches=launches[k],
+                    path=paths.get(k, "bf16 CLI scoring, 2 batches"), **rec)
                for k, (rec, route, src, rep) in records.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

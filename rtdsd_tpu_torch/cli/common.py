@@ -12,6 +12,7 @@ from rtdsd_tpu_torch.config import ExpConfig, SysConfig
 from rtdsd_tpu_torch.data.loader import EvalLoader
 from rtdsd_tpu_torch.engine.steps import make_score_step
 from rtdsd_tpu_torch.models.convert import load_reference_state_dict
+from rtdsd_tpu_torch.models.quantize import quantize_state_dict
 from rtdsd_tpu_torch.models.registry import ModelSpec, get_model
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -41,6 +42,36 @@ def load_checkpoint_for_eval(ckpt: str, spec: ModelSpec) -> None:
             "readable by the port; export a reference .pt with "
             "rtdsd_tpu.models.export_reference")
     spec.module.load_state_dict(load_reference_state_dict(ckpt), strict=True)
+
+
+def apply_w8(sys_config: SysConfig, exp_config: ExpConfig, spec: ModelSpec,
+             device: torch.device, a8: bool = False) -> ModelSpec:
+    """Serving mode: rebuild the spec with int8 transformer matmuls and
+    fill it with the loaded float model's weights, quantized on ``device``
+    (models/quantize.py). ``a8=True`` adds dynamic int8 activations."""
+    kwargs = dict(exp_config.kwargs)
+    kwargs["w2v"] = {**(kwargs.get("w2v") or {}), "w8": True, "a8": bool(a8)}
+    w8 = build_model(sys_config, exp_config, device, kwargs=kwargs)
+    w8.module.load_state_dict(quantize_state_dict(spec.module.state_dict()),
+                              strict=True)
+    print("w8 scoring: XLSR transformer weights quantized to int8"
+          + (" + dynamic int8 activations (w8a8)" if a8 else ""))
+    return w8
+
+
+def load_eval_model(sys_config: SysConfig, exp_config: ExpConfig, ckpt: str,
+                    device: torch.device, w8: bool = False,
+                    w8a8: bool = False) -> ModelSpec:
+    """Build the configured model, load ``ckpt`` (strict), and optionally
+    quantize it (w8/w8a8, the config's ``w8_scoring``/``w8a8_scoring``
+    OR'd in)."""
+    spec = build_model(sys_config, exp_config, device)
+    load_checkpoint_for_eval(ckpt, spec)
+    print(f"Loaded checkpoint from {ckpt}")
+    a8 = w8a8 or exp_config.w8a8_scoring
+    if a8 or w8 or exp_config.w8_scoring:
+        spec = apply_w8(sys_config, exp_config, spec, device, a8=a8)
+    return spec
 
 
 def score_dataset(dataset, spec: ModelSpec, batch_size: int,

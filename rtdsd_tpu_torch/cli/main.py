@@ -2,13 +2,17 @@
 
     python -m rtdsd_tpu_torch.cli.main --config cfg.yaml --is_eval \\
         --is_score --ckpt model.pt --tracks LA19,LA21 [--comment tag] \\
-        [--device cuda|cpu]
+        [--w8 | --w8a8] [--device cuda|cpu]
 
 The device defaults to ``cuda``; without a GPU the run raises unless
 ``--device cpu`` is given. ``--ckpt`` is a reference-format ``.pt``
 (``rtdsd_tpu.models.export_reference`` writes one from a JAX checkpoint).
-Training, ``--w8``/``--w8a8`` and cascade scoring (``--cascade_ckpt``) are
-not ported yet and raise; so does eval without ``--is_score``.
+``--w8`` scores with int8 transformer weights and ``--w8a8`` with int8
+weights and int8 activations (``ExpConfig.w8_scoring`` /
+``w8a8_scoring`` turn them on too); the weights are quantized after the
+load, on the run's device. Training and cascade scoring
+(``--cascade_ckpt``) are not ported yet and raise; so does eval without
+``--is_score``.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import argparse
 import os
 import sys
 
-from rtdsd_tpu_torch.cli.common import (build_model, load_checkpoint_for_eval,
+from rtdsd_tpu_torch.cli.common import (load_eval_model,
                                         produce_evaluation_file, tag_score_path)
 from rtdsd_tpu_torch.config import load_yaml_config
 from rtdsd_tpu_torch.data.dataset import (ASVSpoof5, ASVspoof2019LA_eval,
@@ -37,8 +41,12 @@ def parse_args(argv=None):
     p.add_argument("--is_score", action="store_true", default=False)
     p.add_argument("--tracks", type=str, default="DF21",
                    help="comma list: LA19/LA21/DF21/InTheWild/ASVspoof5/FakeOrReal")
-    p.add_argument("--w8", action="store_true", default=False)
-    p.add_argument("--w8a8", action="store_true", default=False)
+    p.add_argument("--w8", action="store_true", default=False,
+                   help="int8 weight-only scoring of the XLSR transformer "
+                        "(or ExpConfig.w8_scoring)")
+    p.add_argument("--w8a8", action="store_true", default=False,
+                   help="w8 plus dynamic int8 activations, int8 x int8 "
+                        "matmuls (or ExpConfig.w8a8_scoring)")
     p.add_argument("--cascade_ckpt", type=str, default=None)
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu")
@@ -63,9 +71,8 @@ def validate_tracks(tracks) -> None:
 
 
 def run_score(args, sys_config, exp_config, tracks, device):
-    spec = build_model(sys_config, exp_config, device)
-    load_checkpoint_for_eval(args.ckpt, spec)
-    print(f"Loaded checkpoint from {args.ckpt}")
+    spec = load_eval_model(sys_config, exp_config, args.ckpt, device,
+                           w8=args.w8, w8a8=args.w8a8)
     for track in tracks:
         ds_cls, path_attr = TRACK_DATASETS[track]
         save_path = tag_score_path(getattr(sys_config, path_attr),
@@ -81,9 +88,8 @@ def run_score(args, sys_config, exp_config, tracks, device):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag in ("w8", "w8a8", "cascade_ckpt"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not yet ported")
+    if args.cascade_ckpt:
+        raise NotImplementedError("--cascade_ckpt is not yet ported")
     tracks = args.tracks.split(",")
     if args.is_eval and args.is_score:
         validate_tracks(tracks)           # fail fast, before any checkpoint IO

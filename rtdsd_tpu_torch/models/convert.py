@@ -6,6 +6,10 @@
   ``rtdsd_tpu/models/export_reference.py``: Dense (I, O) -> Linear (O, I);
   Conv (K, I/g, O) -> Conv1d (O, I/g, K); Conv (Kh, Kw, I, O) -> Conv2d
   (O, I, Kh, Kw); scale/bias (+ mean/var) -> weight/bias (+ running stats).
+  A quantized tree (``rtdsd_tpu.models.quantize.quantize_variables``: the
+  transformer matmuls hold int8 ``vals`` (L, in, out) and ``scales`` (L, 1,
+  out) in place of ``kernel``) gives ``vals``/``scales``/``bias`` in the
+  same layout, the buffers of ``W8Linear`` and ``W8A8Linear``.
 - :func:`load_reference_state_dict`: a reference ``.pt`` (or a state dict)
   -> the port's state dict. It folds fairseq's weight-normed positional conv
   (``weight_g``/``weight_v``, or the ``parametrizations`` spelling) into one
@@ -36,7 +40,11 @@ def _t(x) -> torch.Tensor:
 
 
 def _lin(out: StateDict, name: str, p: Mapping):
-    out[f"{name}.weight"] = _t(p["kernel"]).t().contiguous()
+    if "vals" in p:                             # int8 W8Dense / W8A8Dense
+        out[f"{name}.vals"] = torch.from_numpy(np.array(p["vals"], np.int8))
+        out[f"{name}.scales"] = _t(p["scales"])
+    else:
+        out[f"{name}.weight"] = _t(p["kernel"]).t().contiguous()
     if "bias" in p:
         out[f"{name}.bias"] = _t(p["bias"])
 
@@ -80,7 +88,7 @@ def _w2v(params: Mapping, P: str) -> StateDict:
              "q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
              "v_proj": "self_attn.v_proj", "out_proj": "self_attn.out_proj",
              "final_layer_norm": "final_layer_norm", "fc1": "fc1", "fc2": "fc2"}
-    for i in range(np.asarray(stacked["fc1"]["kernel"]).shape[0]):
+    for i in range(len(stacked["fc1"]["bias"])):
         for jax_name, torch_name in names.items():
             sub = {k: np.asarray(v)[i] for k, v in stacked[jax_name].items()}
             fn = _norm if "norm" in jax_name else _lin

@@ -18,6 +18,11 @@ compute dtype and ``fast_softmax`` on, the bf16 softmax stays plain PyTorch
 (plain einsums in JAX too); every other case goes through
 :func:`rtdsd_tpu_torch.ops.attention.mha_small_t`, the port of the Pallas
 kernel, which is the CUDA kernel on the card.
+
+With ``w8`` the six transformer matmuls are :class:`W8Linear` (int8
+weights) and with ``w8`` and ``a8`` :class:`W8A8Linear` (int8 weights and
+per-token int8 activations), the ports of ``W8Dense`` and ``W8A8Dense``;
+``models/quantize.py`` makes their weights from a float state dict.
 """
 
 from __future__ import annotations
@@ -41,8 +46,9 @@ class Wav2Vec2Config:
     """Same fields and defaults as the JAX package's config, so one config
     file drives both. Fields that only shape training or the TPU program
     (``scan_unroll``, ``conv_impl``, ``remat_*``, ``fast_softmax_train``)
-    have nothing to do in the port's eval forward; ``w8``, ``a8`` and
-    ``conv_segments > 1`` are not ported yet and raise."""
+    have nothing to do in the port's eval forward; ``conv_segments > 1``
+    is not ported yet and raises. As in JAX, ``a8`` takes effect only
+    together with ``w8``."""
 
     conv_layers: Tuple[Tuple[int, int, int], ...] = (
         (512, 10, 5), (512, 3, 2), (512, 3, 2), (512, 3, 2), (512, 3, 2),
@@ -90,8 +96,6 @@ def make_w2v_cfg(num_layers: int = 24, **overrides) -> Wav2Vec2Config:
         kw["conv_layers"] = tuple(tuple(int(x) for x in l)
                                   for l in kw["conv_layers"])
     cfg = Wav2Vec2Config(encoder_layers=num_layers, **kw)
-    if cfg.w8 or cfg.a8:
-        raise NotImplementedError("w8/w8a8 scoring is not yet ported")
     if cfg.conv_segments > 1:
         raise NotImplementedError("conv_segments is not yet ported")
     if cfg.extractor_mode not in ("layer_norm", "group_norm"):
@@ -148,10 +152,80 @@ def select_layers(state_dict: dict, indices: Sequence[int],
     return out
 
 
+# ------------------------------------------------------------------ int8
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., K) int8 @ (K, N) int8 -> (..., N) int32, exact.
+
+    ``torch._int_mm`` on both devices (the JAX package leaves this product
+    to XLA, outside any kernel). On CUDA it takes more than 16 rows and K,
+    N multiples of 8, so the rows are padded with zeros to a multiple of 8,
+    at least 24, and sliced off again."""
+    k, n = b.shape
+    if a.is_cuda and (k % 8 or n % 8):
+        raise ValueError(f"int8 matmul on CUDA needs K and N multiples of 8, "
+                         f"got K={k}, N={n}")
+    lead = a.shape[:-1]
+    a2 = a.reshape(-1, k)
+    m = a2.shape[0]
+    pad = max(24, -(-m // 8) * 8) - m
+    if pad:
+        a2 = F.pad(a2, (0, 0, 0, pad))
+    return torch._int_mm(a2, b)[:m].reshape(*lead, n)
+
+
+class W8Linear(nn.Module):
+    """Linear with int8 weight storage, the port of ``W8Dense``:
+    ``y = (x @ vals) * scales + bias`` with ``vals`` (in, out) int8,
+    ``scales`` (1, out) float32 and ``bias`` (out,) float32 in the JAX
+    layout. As in JAX the product, the scales and the bias are all in the
+    compute dtype (each rounded to it before the epilogue)."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.register_buffer("vals", torch.zeros((in_features, out_features),
+                                                 dtype=torch.int8))
+        self.register_buffer("scales", torch.ones((1, out_features)))
+        self.register_buffer("bias", torch.zeros(out_features))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        y = x.to(dtype) @ self.vals.to(dtype)
+        return y * self.scales[0].to(dtype) + self.bias.to(dtype)
+
+
+class W8A8Linear(W8Linear):
+    """int8 weights and dynamically int8-quantized activations, the port of
+    ``W8A8Dense`` (same buffers as :class:`W8Linear`). Each token is scaled
+    by 127 / max(max|x|, 1e-6) and rounded half to even; the int8 product
+    accumulates in int32; both scales and the bias apply in float32, cast
+    to the compute dtype at the end."""
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        xf = x.float()
+        amax = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
+        xq = torch.round(xf * (127.0 / amax)).to(torch.int8)
+        y = int8_matmul(xq, self.vals).float() * (amax * (1.0 / 127.0))
+        return (y * self.scales[0] + self.bias).to(dtype)
+
+
+def dense(cfg: Wav2Vec2Config, in_features: int, out_features: int
+          ) -> nn.Module:
+    """A transformer matmul of the type ``cfg`` selects, as the JAX layer's
+    ``dense``: W8A8 when w8 and a8, W8 when w8, else a float Linear."""
+    if cfg.w8 and cfg.a8:
+        return W8A8Linear(in_features, out_features)
+    if cfg.w8:
+        return W8Linear(in_features, out_features)
+    return nn.Linear(in_features, out_features)
+
+
 # ------------------------------------------------------------------ helpers
 
-def linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """A Linear in the compute dtype (inputs, weight and bias cast to it)."""
+def linear(x: torch.Tensor, lin: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """A Linear in the compute dtype (inputs, weight and bias cast to it);
+    an int8 layer computes as its JAX counterpart does."""
+    if isinstance(lin, W8Linear):
+        return lin(x, dtype)
     bias = None if lin.bias is None else lin.bias.to(dtype)
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
 
@@ -210,12 +284,13 @@ class ConvFeatureExtractor(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
-        self.q_proj = nn.Linear(dim, dim)
-        self.k_proj = nn.Linear(dim, dim)
-        self.v_proj = nn.Linear(dim, dim)
-        self.out_proj = nn.Linear(dim, dim)
+        d = cfg.encoder_embed_dim
+        self.q_proj = dense(cfg, d, d)
+        self.k_proj = dense(cfg, d, d)
+        self.v_proj = dense(cfg, d, d)
+        self.out_proj = dense(cfg, d, d)
 
 
 class TransformerLayer(nn.Module):
@@ -225,10 +300,10 @@ class TransformerLayer(nn.Module):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         d = cfg.encoder_embed_dim
-        self.self_attn = SelfAttention(d)
+        self.self_attn = SelfAttention(cfg)
         self.self_attn_layer_norm = nn.LayerNorm(d, eps=LN_EPS)
-        self.fc1 = nn.Linear(d, cfg.encoder_ffn_dim)
-        self.fc2 = nn.Linear(cfg.encoder_ffn_dim, d)
+        self.fc1 = dense(cfg, d, cfg.encoder_ffn_dim)
+        self.fc2 = dense(cfg, cfg.encoder_ffn_dim, d)
         self.final_layer_norm = nn.LayerNorm(d, eps=LN_EPS)
 
     def attention(self, q, k, v) -> torch.Tensor:

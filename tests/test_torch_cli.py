@@ -18,82 +18,16 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_track import N_CLIPS, make_track
 from rtdsd_tpu_torch.cli import main as port_main
-from rtdsd_tpu_torch.data.io import write_wav
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-N_CLIPS = 10                     # two batches of 8, the last one padded
-
-
-def _config(root, model_pt_dir):
-    cfg = f"""
-SysConfig:
-  wandb_disabled: true
-  model: My_XLSR_AASIST
-  path_label_asv_spoof_2021_la_eval: {root}/la21.txt
-  path_asv_spoof_2021_la_eval: {root}/audio
-  la21_score_save_path: {root}/scores_la21.txt
-  path_to_save_model: {model_pt_dir}
-  num_workers: 1
-ExpConfig:
-  random_seed: 42
-  test_duration_sec: 0.5
-  batch_size_test: 8
-  compute_dtype: float32
-  kwargs:
-    num_layers: 2
-    fused_gat: true
-    w2v:
-      encoder_embed_dim: 32
-      encoder_ffn_dim: 64
-      encoder_heads: 4
-      conv_pos: 16
-      conv_pos_groups: 4
-      conv_layers: [[32, 10, 5], [32, 3, 2], [32, 2, 2], [32, 2, 2]]
-"""
-    path = root / "cfg.yaml"
-    path.write_text(cfg)
-    return str(path)
 
 
 @pytest.fixture(scope="module")
 def track(tmp_path_factory):
     """Synthetic LA21 track, config, and a reference .pt of a tiny model."""
-    import jax
-    import jax.numpy as jnp
-
-    from rtdsd_tpu.config import load_yaml_config
-    from rtdsd_tpu.models.export_reference import export_reference_model
-    from rtdsd_tpu.models.registry import get_model
-
-    root = tmp_path_factory.mktemp("torch_cli")
-    os.makedirs(root / "audio")
-    rng = np.random.default_rng(7)
-    lines = []
-    for i in range(N_CLIPS):
-        t = np.arange(9000 + 300 * i) / 16000
-        bona = i % 2 == 1
-        wave = (0.3 * np.sin(2 * np.pi * 440 * t) if bona
-                else 0.2 * rng.standard_normal(len(t))).astype(np.float32)
-        uid = f"LA_E_{i:04d}"
-        write_wav(str(root / "audio" / f"{uid}.flac"), wave, 16000)
-        lines.append(f"LA_0001 {uid} - A01 {'bonafide' if bona else 'spoof'}")
-    (root / "la21.txt").write_text("\n".join(lines) + "\n")
-    cfg = _config(root, root / "runs")
-
-    _, exp = load_yaml_config(cfg)
-    spec = get_model("My_XLSR_AASIST", **exp.kwargs)
-    v = jax.jit(lambda w: spec.module.init(jax.random.key(0), w, train=False))(
-        jnp.zeros((2, 8000), jnp.float32))
-    stats = jax.tree_util.tree_map(      # non-trivial BN running statistics
-        lambda a: np.asarray(rng.uniform(0.5, 1.5, a.shape), np.float32),
-        v["batch_stats"])
-    sd = export_reference_model({"params": v["params"], "batch_stats": stats},
-                                "My_XLSR_AASIST")
-    pt = root / "model.pt"
-    torch.save({k: torch.from_numpy(np.array(a)) for k, a in sd.items()},
-               str(pt))
-    return root, cfg, str(pt)
+    return make_track(tmp_path_factory.mktemp("torch_cli"))
 
 
 def _scores(path):
@@ -135,8 +69,8 @@ def test_cli_probes(track):
         port_main.main(base + ["--ckpt", pt, "--tracks", "BOGUS"])
     with pytest.raises(NotImplementedError, match="training"):
         port_main.main(["--config", cfg])
-    with pytest.raises(NotImplementedError, match="w8"):
-        port_main.main(base + ["--ckpt", pt, "--w8"])
+    with pytest.raises(NotImplementedError, match="cascade_ckpt"):
+        port_main.main(base + ["--ckpt", pt, "--cascade_ckpt", pt])
 
 
 def test_cli_without_device_needs_a_gpu(track):

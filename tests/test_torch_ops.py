@@ -7,14 +7,17 @@ Inputs are made with ``numpy.random.default_rng``.
 
 Tests marked ``gpu`` hold each CUDA kernel against its plain version on the
 card; without a CUDA device they skip (``python -m pytest -m gpu
-tests/test_torch_ops.py`` on the GPU machine runs them).
+tests/test_torch_ops.py`` on the GPU machine runs them). The convstack
+kernels' are in tests/test_torch_convstack.py; ``quantize_int8``'s and the
+int8 product's are here, as the rest of their tests need JAX.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from rtdsd_tpu_torch.ops import attention, build, gat
+from rtdsd_tpu_torch.models.wav2vec2 import int8_matmul
+from rtdsd_tpu_torch.ops import attention, build, gat, quant
 
 
 @pytest.fixture
@@ -114,7 +117,7 @@ def test_htrg_plain_matches_jax(jx, n1):
 
 
 def test_kernel_sources_and_build_dir():
-    assert build.sources() == ["gat", "mha_small_t"]
+    assert build.sources() == ["convstack", "gat", "mha_small_t", "quant"]
     path = build.library_path("gat")
     assert path.startswith(build.BUILD_DIR) and path.endswith(".so")
 
@@ -167,3 +170,46 @@ def test_htrg_kernel_matches_plain(cuda, b, n, d, do, n1):
     want = gat.fused_htrg_gat_aggregate_reference(*args, n1=n1,
                                                   temperature=100.0)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("shape", [(1024, 1024), (1024, 4096), (4096, 1024),
+                                   (37, 130), (3, 5)])
+def test_quantize_kernel_matches_plain(cuda, stochastic, shape):
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(shape, generator=g, device=cuda) * shape[0] ** -0.5
+    before = quant.quantize_int8.launches
+    vals, scales = quant.quantize_int8(x, seed=7919 * 3, stochastic=stochastic)
+    torch.cuda.synchronize()
+    assert quant.quantize_int8.launches == before + 1
+    want_v, want_s = quant.quantize_int8_reference(x, 7919 * 3, stochastic)
+    # the same float32 arithmetic and the same random bits: bit for bit
+    assert torch.equal(scales, want_s) and torch.equal(vals, want_v)
+
+
+@pytest.mark.gpu
+def test_quantize_kernel_default_is_stochastic_and_unbiased(cuda):
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((4096, 1024), generator=g, device=cuda)
+    vals, scales = quant.quantize_int8(x, seed=5)
+    assert torch.equal(vals, quant.quantize_int8_reference(x, 5, True)[0])
+    scaled = x.double() / scales.double()
+    err = vals.double() - scaled
+    assert err.abs().max() < 1.0                 # |dequant - x| < scale
+    var = (scaled - scaled.floor()) * (scaled.floor() + 1 - scaled)
+    # per-column mean error within 6 standard errors of 0
+    assert (err.mean(0).abs() < 6 * var.sum(0).sqrt() / x.shape[0]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 16, 199, 3184])
+def test_int8_matmul_on_card_is_exact(cuda, rows):
+    g = torch.Generator(device="cuda").manual_seed(rows)
+    a = torch.randint(-128, 128, (rows, 1024), generator=g, device=cuda,
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (1024, 4096), generator=g, device=cuda,
+                      dtype=torch.int8)
+    got = int8_matmul(a, b)
+    # |sums| < 2^24 * 1024 < 2^53: exact in float64
+    assert torch.equal(got.double(), a.double() @ b.double())
