@@ -8,7 +8,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its path gives it (batch 16), with times of the kernel, the plain
    version, the least time the card could take (bound) and, for attention,
    ``scaled_dot_product_attention`` as the library yardstick (timed here,
-   never used by the port): attention, the two GAT kernels,
+   never used by the port): attention (bf16 also at the edges of its
+   tiling: T 1, 17, 37, 208, 256, 257 and the longest T the wrapper takes at
+   D=64, D 16, 32, 128, q, k, v views of one projection, and a negative
+   scale), the two GAT kernels,
    ``quantize_int8`` at the flagship's three matrix shapes in both rounding
    modes (bit for bit, plus statistics of the stochastic mode), ``ln_gelu``
    and ``conv_ln_gelu_grouped`` at the six front-end layer geometries;
@@ -61,6 +64,10 @@ PEAK = {"bf16": 989e12, "f32": 67e12}   # dense FLOP/s, published
 # (rtol, atol): f32 differs by summation order only; bf16 may round the
 # output one step apart (a bf16 step is 2^-8 of the value)
 ATTN_TOL = {"f32": (1e-4, 1e-5), "bf16": (1e-2, 1e-2)}
+# bf16 attention, besides ATTN_TOL: |got - want| / |want| over the whole
+# output. Rounding keeps it near 1e-3; a dropped 16-key tile at the longest
+# T moves outputs of size 0.05 by 0.004 or more, about 10% of the norm.
+ATTN_REL_NORM = 1e-2
 GAT_TOL = (1e-4, 1e-5)      # f32 throughout, summation order only
 LOGIT_TOL = 1e-3            # 24 f32 layers + graph back-end, order only
 CONV_TOL = ATTN_TOL         # f32 summation order; bf16 one output step
@@ -103,6 +110,19 @@ def device_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def ptxas_summary(stem: str, kernels) -> list:
+    """ptxas's registers and spills of the named kernels (mangled-name
+    fragments) from the build log of ``csrc/<stem>.cu``."""
+    from rtdsd_tpu_torch.ops import build
+
+    with open(build.library_path(stem) + ".log") as f:
+        lines = f.read().splitlines()
+    return [f"ptxas {name}: " + " | ".join(l.split(":", 1)[-1].strip()
+                                          for l in lines[i + 2:i + 4])
+            for i, line in enumerate(lines) if "Compiling entry function" in line
+            for name in kernels if name in line]
+
+
 def bound_ms(nbytes: float, flops: float, kind: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK[kind] * 1e3
@@ -111,6 +131,53 @@ def bound_ms(nbytes: float, flops: float, kind: str):
 
 # ------------------------------------------------------------ phase 3
 
+def check_bf16_attention(got, want, what: str) -> None:
+    """Hold a bf16 attention output to ATTN_TOL and ATTN_REL_NORM."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    rtol, atol = ATTN_TOL["bf16"]
+    log(f"mha_small_t bf16 ({what}): max|d| {err:.3g} (rtol {rtol}, atol "
+        f"{atol}), relative norm {rel:.3g} (limit {ATTN_REL_NORM})")
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    if not rel <= ATTN_REL_NORM:
+        raise AssertionError(f"mha_small_t bf16 ({what}): relative norm {rel:.3g}")
+
+
+def attention_edges(dev, g) -> None:
+    """The bf16 kernel against its plain version at the edges of its tiling:
+    T around 16-key tiles, 64-key groups and the 256-key register chunk,
+    the two-pass paths past it (also with several query tiles per block at
+    (16, 257, 16, 64)), the longest T the wrapper takes at every head dim,
+    and q, k, v as strided views of one (B, T, 3 H D) projection."""
+    from rtdsd_tpu_torch.ops.attention import (HEAD_DIMS, max_seq,
+                                               mha_small_t,
+                                               mha_small_t_reference)
+
+    cases = ([(2, t, 4, 64) for t in (1, 17, 37, 208, 256, 257)]
+             + [(2, 50, 4, d) for d in (16, 32, 128)]
+             + [(2, 300, 4, 16), (2, 300, 4, 32), (2, 200, 4, 128)]
+             + [(2, max_seq(d, torch.bfloat16), 4, d) for d in HEAD_DIMS])
+    views = [(16, 257, 16, 64), (B, 199, 16, 64)]
+    for d in (32, 64):                   # a negative scale, on both kernels
+        q, k, v = (torch.randn((2, 50, 4, d), generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        got = mha_small_t(q, k, v, scale=-0.3)
+        want = mha_small_t_reference(q, k, v, scale=-0.3)
+        check_bf16_attention(got, want, f"B=2, T=50, H=4, D={d}, scale -0.3")
+    for b, t, h, d in cases + views:
+        x = torch.randn((b, t, 3 * h * d), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        q, k, v = (x[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d))
+                   for i in range(3))
+        if (b, t, h, d) in cases:                  # separate tensors
+            q, k, v = (y.contiguous() for y in (q, k, v))
+        got, want = mha_small_t(q, k, v), mha_small_t_reference(q, k, v)
+        check_bf16_attention(got, want, f"B={b}, T={t}, H={h}, D={d}"
+                             + ("" if (b, t, h, d) in cases
+                                else ", views of one projection"))
+
+
 def check_attention(dev) -> dict:
     import torch.nn.functional as F
 
@@ -118,6 +185,7 @@ def check_attention(dev) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(0)
     t, h, d = 199, 16, 64
+    attention_edges(dev, g)
     rec = {}
     for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         # q, k, v as the layer makes them: views of (B, T, H*D) projections
@@ -528,7 +596,7 @@ def steady_ms_per_clip(model, waves) -> float:
     return start.elapsed_time(end) / 5 / waves.shape[0]
 
 
-KERNEL_CLASSES = (("mha_small_t kernel", ("mha_small_t_kernel",)),
+KERNEL_CLASSES = (("mha_small_t kernel", ("mha_small_t",)),
                   ("GAT kernels", ("gat_kernel",)),
                   ("GEMM", ("gemm", "nvjet", "xmma", "cublas")),
                   ("convolution", ("conv", "fprop", "cudnn")),
@@ -629,6 +697,9 @@ def main() -> int:
     built = build.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'cached'})")
+    for line in ptxas_summary("mha_small_t", ("wgmma_kernelILi16ELb0E",
+                                               "mha_small_t_kernelIfLi64E")):
+        log(line)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

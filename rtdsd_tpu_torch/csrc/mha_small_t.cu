@@ -1,45 +1,87 @@
 // Small-T multi-head self-attention for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel rtdsd_tpu/ops/pallas/attention.py
-// (mha_small_t, body _mha_kernel). Per (batch, head): softmax(Q K^T * scale)
-// in float32, normalised before p is rounded to V's dtype, then p V with
-// float32 accumulation; the output is in the input dtype. Inputs are read in
-// their (B, T, H, D) layout through their strides (the head dimension must
-// be contiguous); the output is a contiguous (B, T, H, D) tensor.
+// (mha_small_t, body _mha_kernel). Per (batch, head): s = Q K^T with f32
+// accumulation, times `scale` in f32, padded keys out of the softmax, row max
+// and sum in f32, p = e / sum normalised in f32 and only then rounded to V's
+// dtype, then p V with f32 accumulation, rounded once to the output dtype.
+// Inputs are read in their (B, T, H, D) layout through their strides (the
+// head dimension contiguous); the output is a contiguous (B, T, H, D) tensor.
 //
-// What bounds it on the H100: at the XLSR shapes (T = 199, D = 64, 16 heads)
-// the work is 4 T^2 D flops per head against 4 T D bytes of bf16 I/O, about
-// 200 flops per byte, so by the card's peaks it sits near the balance point
-// and neither bound is far away. This first version does its arithmetic on
-// the CUDA cores (no tensor cores), so in practice it is bound by shared
-// memory reads and fp32 FMA issue, not by HBM.
+// What bounds it on the H100: at the XLSR shape (B 16, T 199, H 16, D 64,
+// bf16) the work is 4 B H T^2 D = 2.6 GFLOP (0.0026 ms at 989 TFLOP/s)
+// against 4 B T H D x 2 bytes = 26.1 MB of q, k, v and o (0.0078 ms at
+// 3.35 TB/s): bound by bytes, by about 3x. Next come the exponentials, one
+// per score: B H T^2 = 10.1 M on the SFUs (16 a clock per SM), about 0.003 ms.
+// So the products and the softmax must hide behind the copies.
 //
-// Design: one block per (batch * head, tile of 64 query rows); K and V of
-// the head are staged once per block in dynamic shared memory (rows padded
-// by one 32-bit word so that lanes walking different keys hit different
-// banks); each of the 8 warps owns a query row at a time, keeps q in
-// registers, computes its scores lane-parallel over keys into a per-warp
-// shared buffer, reduces max and sum with shuffles, and accumulates p V
-// lane-parallel over the head dimension. The (T, T) scores never reach HBM.
+// bf16, D = 64 (mha_small_t_wgmma_kernel, the scoring path):
+// - Both products on the tensor cores with warpgroup wgmma (bf16 in, f32
+//   accumulate): a block is one warpgroup; each warp holds 16 query rows of
+//   a 64-row tile as mma A fragments in registers; K (for Q K^T, 64 keys a
+//   wgmma) and V (for P V, read transposed) are read by the tensor cores
+//   from shared memory through matrix descriptors, once per warpgroup.
+// - A block stages its head's K and V once, with 16-byte cp.async (K first;
+//   V only once K has landed, so that K, which the first score pass waits
+//   for, has the memory to itself), and then walks that head's query tiles,
+//   so K and V cross from device memory once per block, not once per tile;
+//   the grid gives about two blocks to each SM.
+//   Rows are 128 bytes with wgmma's 128-byte swizzle (16-byte chunk index
+//   XOR row % 8), zero-filled past T (source size 0), so 0 * garbage never
+//   poisons O.
+// - The score chunk (up to 256 keys) stays in registers: row max and sum in
+//   f32, reduced across the quad of lanes sharing a row with two shuffles;
+//   the scale is folded into the exponent, e = 2^(s scale log2(e) - max
+//   scale log2(e)), one FFMA and one MUFU ex2 a score (a negative scale
+//   negates q instead, exactly; see exp2_scale). p = e * (1 / sum) is
+//   formed in f32 and only then rounded to bf16 (unlike flash attention's
+//   online softmax, which rounds the unnormalised e). T > 256 takes 64-key
+//   chunks in two passes (statistics, then the scores again for P V).
+// - P never touches shared memory: the C fragments of two adjacent 8-key
+//   score tiles are the A fragment of one 16-key step of P V.
+// - ptxas keeps several wgmmas in flight only when none of them sits under a
+//   branch, so every wgmma here is unconditional: the number of 64-key
+//   score wgmmas is a template parameter (T <= 256: T rounded up to 64
+//   keys, one instance for each of 64, 128, 192 and 256; T > 256: 64-key
+//   chunks), padded keys contributing exact zeros.
+// What it does not yet hide: a warpgroup runs its products, its softmax and
+// its P V one after another, and with 231 registers a thread only two
+// blocks share an SM, so the SM sub-partitions wait on their own
+// instruction latencies (PERF.md, PR 3).
+//
+// bf16, D = 16, 32, 128 (mha_small_t_mma_kernel): the same arithmetic with
+// mma.sync.m16n8k16, one warp per 16 query rows, K fragments by ldmatrix and
+// V fragments by ldmatrix.trans from the swizzled shared copy (the swizzle
+// puts the 8 rows one ldmatrix reads in 8 different bank groups).
+// Shared memory is 4 T_pad D bytes (T_pad: T rounded up to 16, or to 64 at
+// D = 64), so T reaches 3632 / 1808 / 896 / 448 at D = 16 /
+// 32 / 64 / 128 (ops/attention.py::max_seq).
+//
+// float32 (mha_small_t_kernel) stays on the CUDA cores: TF32 tensor cores
+// would not keep its accuracy. One block per (batch * head, tile of 64 query
+// rows); K and V in padded dynamic shared memory; each of the 8 warps owns a
+// query row at a time, keeps q in registers, computes its scores
+// lane-parallel over keys into a per-warp shared buffer, reduces max and sum
+// with shuffles, and accumulates p V lane-parallel over the head dimension.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
+
+// ------------------------------------------------ float32, CUDA cores
 
 constexpr int kWarps = 8;
 constexpr int kRowsPerBlock = 64;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Shared-memory row stride in elements: D plus one 32-bit word.
 template <typename T> __host__ __device__ constexpr int row_stride(int d) {
@@ -49,9 +91,6 @@ template <typename T> __host__ __device__ constexpr int row_stride(int d) {
 // Two consecutive elements of a shared-memory row as floats (d even).
 __device__ __forceinline__ float2 load2(const float* row, int d) {
   return make_float2(row[d], row[d + 1]);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* row, int d) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + d));
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -74,8 +113,8 @@ mha_small_t_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    int64_t svb, int64_t svt, int64_t svh, float scale) {
   constexpr int KS = row_stride<T>(D);
   constexpr int PAIRS = D / 2;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  T* ks = reinterpret_cast<T*>(f32_smem);
   T* vs = ks + static_cast<size_t>(seq) * KS;
   float* ps = reinterpret_cast<float*>(vs + static_cast<size_t>(seq) * KS);
 
@@ -146,45 +185,608 @@ mha_small_t_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-size_t smem_bytes(int seq, int d) {
-  return 2 * static_cast<size_t>(seq) * row_stride<T>(d) * sizeof(T) +
+size_t f32_smem_bytes(int seq, int d) {
+  return 2 * static_cast<size_t>(seq) * row_stride<float>(d) * sizeof(float) +
          static_cast<size_t>(kWarps) * seq * sizeof(float);
 }
 
-template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B, int seq,
-             int H, const int64_t* s, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(seq, D);
-  auto kern = mha_small_t_kernel<T, D>;
-  // raise the dynamic shared memory limit once per size (not on every launch:
-  // launches may be captured into a CUDA graph)
-  static size_t allowed = 0;
-  if (smem > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    allowed = smem;
+// ------------------------------------------------ bf16, tensor cores
+
+using bf16 = __nv_bfloat16;
+
+// Warps of the mma.sync kernel's block (16 query rows each) and 16-key
+// tiles whose scores a warp holds in registers at once (halved at D = 128).
+constexpr int kMmaWarps = 4;
+template <int D> __host__ __device__ constexpr int key_tiles() { return D <= 64 ? 16 : 8; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy; src_bytes 0 fills the destination with zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a (16 x 16, row major) * b (16 x 8, column major), bf16 in, f32 out.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Warpgroup mma (wgmma): four warps multiply a 64-row A held in their
+// registers (each warp's 16 rows in the mma.sync A layout) by a B read once
+// from shared memory through a matrix descriptor; each warp receives its 16
+// rows of the product in the mma.sync C layout, one C fragment per 8 columns.
+// ptxas keeps wgmmas in flight together only when none of them is issued
+// under a branch, so every wgmma below is unconditional.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Make shared memory written by this thread (cp.async) visible to wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keep the compiler from touching wgmma accumulators before the wait.
+template <int N> __device__ __forceinline__ void pin(float (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(r[i][j])::"memory");
+}
+
+// Descriptor of a 128-byte-swizzled operand at shared address `addr`: rows
+// of 128 bytes (64 bf16), groups of 8 rows 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(1) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+// d[O ... O + 7] (64 x 64: this warp's 8 C fragments) (+)= a (64 x 16) b,
+// where b is 64 keys by 16 d of K (K-major, kTrans 0) or 16 keys by 64 d of
+// V (MN-major, kTrans 1: read transposed).
+template <int kTrans, int O, int M>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[M][4], const uint32_t (&a)[4],
+                                           uint64_t desc, int accumulate) {
+  static_assert(O + 8 <= M, "accumulators out of range");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "{%32,%33,%34,%35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[O + 0][0]), "+f"(d[O + 0][1]), "+f"(d[O + 0][2]), "+f"(d[O + 0][3]),
+        "+f"(d[O + 1][0]), "+f"(d[O + 1][1]), "+f"(d[O + 1][2]), "+f"(d[O + 1][3]),
+        "+f"(d[O + 2][0]), "+f"(d[O + 2][1]), "+f"(d[O + 2][2]), "+f"(d[O + 2][3]),
+        "+f"(d[O + 3][0]), "+f"(d[O + 3][1]), "+f"(d[O + 3][2]), "+f"(d[O + 3][3]),
+        "+f"(d[O + 4][0]), "+f"(d[O + 4][1]), "+f"(d[O + 4][2]), "+f"(d[O + 4][3]),
+        "+f"(d[O + 5][0]), "+f"(d[O + 5][1]), "+f"(d[O + 5][2]), "+f"(d[O + 5][3]),
+        "+f"(d[O + 6][0]), "+f"(d[O + 6][1]), "+f"(d[O + 6][2]), "+f"(d[O + 6][3]),
+        "+f"(d[O + 7][0]), "+f"(d[O + 7][1]), "+f"(d[O + 7][2]), "+f"(d[O + 7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate),
+        "n"(kTrans));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x in one MUFU instruction (relative error about 2^-22); 2^-inf = 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Element offset of 16-byte chunk c of shared-memory row r (D bf16 a row).
+// Chunks are XOR-swizzled so that the 8 rows one ldmatrix reads at one
+// chunk column land in 8 different 16-byte bank groups. At D = 64 this is
+// wgmma's 128-byte swizzle (chunk ^= row % 8 in 128-byte rows).
+template <int D> __device__ __forceinline__ int swz(int r, int c) {
+  constexpr int R = D / 8;  // chunks per row
+  if constexpr (R >= 8) {
+    return r * D + ((c ^ (r & 7)) << 3);
+  } else {
+    const int l = r * R + c;  // chunk index; a 128-byte line holds 8
+    return ((l & ~7) | ((l ^ (l >> 3)) & 7)) << 3;
   }
+}
+
+// Copy `rows` rows of one head (row stride `st`) into swizzled shared
+// memory at `dst` with 16-byte cp.async, thread `tid` of kThreads; rows >=
+// seq are zero-filled.
+template <int D, int kThreads>
+__device__ __forceinline__ void stage(uint32_t dst, const bf16* base, int64_t st, int rows,
+                                      int seq, int tid) {
+  constexpr int R = D / 8;               // 16-byte chunks per row
+  constexpr int kStep = kThreads / R;    // rows one pass of the threads copies
+  const int c = tid % R;
+  const int r0 = tid / R;
+  const bf16* src = base + r0 * st + 8 * c;
+  for (int r = r0; r < rows; r += kStep, src += kStep * st)
+    cp_async16(dst + 2 * swz<D>(r, c), r < seq ? src : base, r < seq ? 16 : 0);
+}
+
+// This lane's Q fragments (rows r0 and r0 + 8; rows >= seq read as zero) in
+// the mma A layout: qa[kk] covers d 16 kk ... 16 kk + 15.
+template <int D>
+__device__ __forceinline__ void load_q(uint32_t (&qa)[D / 16][4], const bf16* q0, int64_t sqt,
+                                       int r0, int seq) {
+  const bf16* q1 = q0 + 8 * sqt;
+  const bool ok0 = r0 < seq, ok1 = r0 + 8 < seq;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int d = 16 * kk;
+    qa[kk][0] = ok0 ? __ldg(reinterpret_cast<const uint32_t*>(q0 + d)) : 0u;
+    qa[kk][1] = ok1 ? __ldg(reinterpret_cast<const uint32_t*>(q1 + d)) : 0u;
+    qa[kk][2] = ok0 ? __ldg(reinterpret_cast<const uint32_t*>(q0 + d + 8)) : 0u;
+    qa[kk][3] = ok1 ? __ldg(reinterpret_cast<const uint32_t*>(q1 + d + 8)) : 0u;
+  }
+}
+
+// Issue the wgmmas of Q K^T for 64-key groups G0 ... KT / 4 - 1 of a chunk
+// whose K starts at shared address kc, each over the four 16-d steps.
+template <int KT, int G0>
+__device__ __forceinline__ void issue_scores(float (&s)[2 * KT][4],
+                                             const uint32_t (&qa)[4][4], uint32_t kc) {
+  if constexpr (4 * G0 < KT) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_bf16<0, 8 * G0>(s, qa[kk], sw128_desc(kc + G0 * 64 * 128 + kk * 32), kk);
+    issue_scores<KT, G0 + 1>(s, qa, kc);
+  }
+}
+
+// Issue Q K^T of chunk c (keys 16 KT c ...) for the warpgroup's 64 rows,
+// all wgmmas in flight together; the caller waits (wgmma_wait_all, then
+// pin(s)).
+template <int KT>
+__device__ __forceinline__ void wgmma_scores(float (&s)[2 * KT][4], const uint32_t (&qa)[4][4],
+                                             uint32_t ks, int c) {
+  wgmma_fence();
+  issue_scores<KT, 0>(s, qa, ks + c * KT * 16 * 128);  // 16 keys of 128 bytes a tile
+  wgmma_commit();
+}
+
+// Q K^T of chunk c (keys 16 KT c ...) for the warp's 16 rows with mma.sync;
+// tiles past the last real one stay 0.
+template <int D, int KT>
+__device__ __forceinline__ void mma_scores(float (&s)[2 * KT][4],
+                                           const uint32_t (&qa)[D / 16][4], uint32_t ks,
+                                           int c, int nkt, int lane) {
+  const int kr = (lane & 7) + ((lane >> 4) << 3);  // this lane's ldmatrix row
+  const int kc = (lane >> 3) & 1;                  // and chunk within 16 d
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    s[2 * t][0] = s[2 * t][1] = s[2 * t][2] = s[2 * t][3] = 0.f;
+    s[2 * t + 1][0] = s[2 * t + 1][1] = s[2 * t + 1][2] = s[2 * t + 1][3] = 0.f;
+    const int kt = c * KT + t;
+    if (kt >= nkt) continue;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t bk[4];
+      ldmatrix_x4(bk, ks + 2 * swz<D>(16 * kt + kr, 2 * kk + kc));
+      mma_bf16(s[2 * t], qa[kk], bk[0], bk[1]);
+      mma_bf16(s[2 * t + 1], qa[kk], bk[2], bk[3]);
+    }
+  }
+}
+
+// Scores of chunk `c` (keys 16 KT c ...): keys >= seq become -inf. s[j] is
+// n8 tile j of the chunk in the mma C layout: s[j][0..1] row g, keys
+// 2 (lane % 4) + {0, 1}; s[j][2..3] row g + 8.
+template <int KT>
+__device__ __forceinline__ void mask_tail(float (&s)[2 * KT][4], int c, int seq, int lane) {
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    const int kt = c * KT + t;
+    if (16 * kt + 16 <= seq) continue;  // a tile of real keys only
+    const int key = 16 * kt + 2 * (lane & 3);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = key + (e & 1);
+      if (j >= seq) s[2 * t][e] = -INFINITY;
+      if (j + 8 >= seq) s[2 * t + 1][e] = -INFINITY;
+    }
+  }
+}
+
+// Pass-1 step over a chunk's scores: raise the row max m of the unscaled
+// scores (rows g and g + 8; the kernels keep the scale positive, so it is
+// the max of the scaled ones) and rescale the lane's partial sum l to it.
+template <int KT>
+__device__ __forceinline__ void update_max(const float (&s)[2 * KT][4], float (&m)[2],
+                                           float (&l)[2], float sl2) {
+  float mc[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j) {
+    mc[0] = fmaxf(mc[0], fmaxf(s[j][0], s[j][1]));
+    mc[1] = fmaxf(mc[1], fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 1));
+    mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 2));
+    const float mn = fmaxf(m[i], mc[i]);  // finite: every chunk has a real key
+    l[i] *= exp2_approx((m[i] - mn) * sl2);
+    m[i] = mn;
+  }
+}
+
+// s <- e = exp(scale s - scale m) = 2^(s sl2 - m sl2), sl2 = scale log2(e)
+// (> 0), one FFMA and one MUFU a score, and the lane's partial row sums
+// added to l; tiles past the last real one (c KT + t >= nkt) become exactly
+// 0.
+template <int KT>
+__device__ __forceinline__ void chunk_exp(float (&s)[2 * KT][4], const float (&m)[2],
+                                          float sl2, int c, int nkt, float (&l)[2]) {
+  const float ms[2] = {m[0] * sl2, m[1] * sl2};
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j) {
+    const bool real = c * KT + j / 2 < nkt;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = real ? exp2_approx(fmaf(s[j][e], sl2, -ms[e >> 1])) : 0.f;
+      l[e >> 1] += s[j][e];
+    }
+  }
+}
+
+__device__ __forceinline__ void quad_sum(float (&l)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+}
+
+// p = e * (1 / l) in f32, rounded to bf16: the two n8 tiles of keys
+// 16 t ... 16 t + 15 as the A fragment pa[t].
+template <int KT>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[KT][4], const float (&s)[2 * KT][4],
+                                       const float (&rl)[2]) {
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    pa[t][0] = pack_bf16(s[2 * t][0] * rl[0], s[2 * t][1] * rl[0]);
+    pa[t][1] = pack_bf16(s[2 * t][2] * rl[1], s[2 * t][3] * rl[1]);
+    pa[t][2] = pack_bf16(s[2 * t + 1][0] * rl[0], s[2 * t + 1][1] * rl[0]);
+    pa[t][3] = pack_bf16(s[2 * t + 1][2] * rl[1], s[2 * t + 1][3] * rl[1]);
+  }
+}
+
+// Rows r0 and r0 + 8 of O (bf16 pairs), rows >= seq not written.
+template <int D>
+__device__ __forceinline__ void store_o(const float (&acc)[D / 8][4], bf16* o0, int64_t row,
+                                        int r0, int seq) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (r0 < seq) *reinterpret_cast<uint32_t*>(o0 + 8 * n) = pack_bf16(acc[n][0], acc[n][1]);
+    if (r0 + 8 < seq)
+      *reinterpret_cast<uint32_t*>(o0 + 8 * row + 8 * n) = pack_bf16(acc[n][2], acc[n][3]);
+  }
+}
+
+// Shared by both kernels: block (blockIdx.x = batch * H + head, blockIdx.y =
+// tile of query rows); q, k, v, o advanced to the head; sl2 = scale log2(e).
+struct Head {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* o;
+  int b, h;
+};
+__device__ __forceinline__ Head head_of(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                                        int H, int64_t sqb, int64_t sqh, int64_t skb,
+                                        int64_t skh, int64_t svb, int64_t svh) {
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  return {q + b * sqb + h * sqh, k + b * skb + h * skh, v + b * svb + h * svh, o, b, h};
+}
+
+// Exponents are taken in units of log2: scores times sl2 = |scale| log2(e).
+// A negative scale negates q instead (exact in bf16), so the row max of the
+// unscaled scores stays the max of the scaled ones. A zero scale becomes
+// 1e-30: every finite exponent then rounds to 2^0 = 1, as at scale 0, while
+// -inf (masked keys, and the sum's first rescale) keeps giving 0, not NaN.
+__device__ __forceinline__ float exp2_scale(float scale) {
+  return fmaxf(fabsf(scale) * 1.4426950408889634f, 1e-30f);
+}
+
+// D = 64 (the XLSR shape): one warpgroup per block, both products with
+// wgmma, up to 64 keys per score product. The block stages K and V of its head
+// once and walks the head's 64-row query tiles blockIdx.y, blockIdx.y +
+// gridDim.y, ..., loading the next tile's Q while it finishes the current.
+// A warp whose 16 rows all lie past T (in the last tile) takes part in the
+// wgmmas but skips the softmax, leaving its SM sub-partition to the other
+// resident block.
+// Not kChunked: T <= 256 and KT = 4 ceil(T / 64), one chunk of all keys,
+// its scores held in registers across both passes.
+// kChunked (KT = 4): chunks of 64 keys, any T, scores recomputed in pass 2.
+// K and V rows are staged to the next multiple of 64, zeros past T.
+template <int KT, bool kChunked>
+__global__ void __launch_bounds__(128)
+mha_small_t_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o, int H, int seq,
+                         int64_t sqb, int64_t sqt, int64_t sqh,
+                         int64_t skb, int64_t skt, int64_t skh,
+                         int64_t svb, int64_t svt, int64_t svh, float scale) {
+  constexpr int D = 64;
+  static_assert(KT % 4 == 0, "scores are taken 64 keys a wgmma");
+  extern __shared__ __align__(1024) unsigned char wgmma_smem[];  // the swizzle's period
+  const Head hd = head_of(q, k, v, o, H, sqb, sqh, skb, skh, svb, svh);
+  const int rows = 64 * ((seq + 63) >> 6);
+  const int nkt = (seq + 15) >> 4;
+  const int nch = kChunked ? rows / 64 : 1;
+  const uint32_t ks = smem_addr(wgmma_smem);
+  const uint32_t vs = ks + 2 * rows * D;
+  stage<D, 128>(ks, hd.k, skt, rows, seq, threadIdx.x);  // V once K has landed
+  cp_async_commit();
+
+  const int lane = threadIdx.x & 31;
+  const int ww = (threadIdx.x >> 5) * 16;  // the warp's first row in a tile
+  const bf16* qlane = hd.q + 2 * (lane & 3);
+  const float sl2 = exp2_scale(scale);
+  const uint32_t qsign = scale < 0.f ? 0x80008000u : 0u;
+  uint32_t qa[D / 16][4], qn[D / 16][4];
+  int r0 = blockIdx.y * 64 + ww + (lane >> 2);
+  load_q<D>(qn, qlane + static_cast<int64_t>(r0) * sqt, sqt, r0, seq);
+  for (int tile = blockIdx.y; tile * 64 < seq; tile += gridDim.y, r0 += 64 * gridDim.y) {
+    const bool live = tile * 64 + ww < seq;  // the warp has a real row
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qa[kk][i] = qn[kk][i] ^ qsign;
+    float s[2 * KT][4];
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();  // K is in shared memory
+    if (tile == blockIdx.y) {  // V in flight during the first pass 1
+      stage<D, 128>(vs, hd.v, svt, rows, seq, threadIdx.x);
+      cp_async_commit();
+    }
+    for (int c = 0; c < nch; ++c) {
+      wgmma_scores<KT>(s, qa, ks, c);
+      wgmma_wait_all();
+      pin(s);
+      if (live) {
+        mask_tail<KT>(s, c, seq, lane);
+        update_max<KT>(s, m, l, sl2);
+        chunk_exp<KT>(s, m, sl2, c, nkt, l);  // with one chunk, s keeps e for pass 2
+      }
+    }
+    if (live) quad_sum(l);
+    const int rn = r0 + 64 * gridDim.y;  // the next tile's Q, in flight during pass 2
+    load_q<D>(qn, qlane + static_cast<int64_t>(rn) * sqt, sqt, rn, seq);
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();  // V is in shared memory
+
+    const float rl[2] = {1.f / l[0], 1.f / l[1]};
+    float acc[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    for (int c = 0; c < nch; ++c) {
+      if constexpr (kChunked) {
+        float unused[2] = {0.f, 0.f};
+        wgmma_scores<KT>(s, qa, ks, c);
+        wgmma_wait_all();
+        pin(s);
+        if (live) {
+          mask_tail<KT>(s, c, seq, lane);
+          chunk_exp<KT>(s, m, sl2, c, nkt, unused);
+        }
+      }
+      uint32_t pa[KT][4];
+      if (live) {
+        pack_p<KT>(pa, s, rl);
+      } else {  // rows past T: zeros, never stored
+#pragma unroll
+        for (int t = 0; t < KT; ++t) pa[t][0] = pa[t][1] = pa[t][2] = pa[t][3] = 0u;
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < KT; ++t)
+        wgmma_bf16<1, 0>(acc, pa[t], sw128_desc(vs + (c * KT + t) * 16 * 2 * D), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(acc);
+    }
+    store_o<D>(acc, hd.o + ((static_cast<int64_t>(hd.b) * seq + r0) * H + hd.h) * D +
+                        2 * (lane & 3), static_cast<int64_t>(H) * D, r0, seq);
+  }
+}
+
+// D = 16, 32, 128: each warp owns 16 query rows and multiplies with
+// mma.sync, K fragments by ldmatrix, V fragments by ldmatrix.trans. Scores
+// of up to KT 16-key tiles are held in registers (one chunk when T <= 16 KT,
+// else the scores are recomputed in pass 2). K and V rows are staged up to
+// the next multiple of 16.
+template <int D>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+mha_small_t_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o, int H, int seq,
+                       int64_t sqb, int64_t sqt, int64_t sqh,
+                       int64_t skb, int64_t skt, int64_t skh,
+                       int64_t svb, int64_t svt, int64_t svh, float scale) {
+  constexpr int KT = key_tiles<D>();
+  extern __shared__ __align__(128) unsigned char mma_smem[];
+  const Head hd = head_of(q, k, v, o, H, sqb, sqh, skb, skh, svb, svh);
+  const int nkt = (seq + 15) >> 4;
+  const int nch = (nkt + KT - 1) / KT;
+  const uint32_t ks = smem_addr(mma_smem);
+  const uint32_t vs = ks + 2 * 16 * nkt * D;
+  stage<D, kMmaWarps * 32>(ks, hd.k, skt, 16 * nkt, seq, threadIdx.x);
+  cp_async_commit();
+  stage<D, kMmaWarps * 32>(vs, hd.v, svt, 16 * nkt, seq, threadIdx.x);
+  cp_async_commit();
+
+  const int lane = threadIdx.x & 31;
+  const int row0 = (blockIdx.y * kMmaWarps + (threadIdx.x >> 5)) * 16;
+  const int r0 = row0 + (lane >> 2);
+  const bool live = row0 < seq;  // a warp with no real row skips the work
+  uint32_t qa[D / 16][4];
+  load_q<D>(qa, hd.q + static_cast<int64_t>(r0) * sqt + 2 * (lane & 3), sqt, r0, seq);
+  const float sl2 = exp2_scale(scale);  // q negated below for a negative scale
+  if (scale < 0.f) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qa[kk][i] ^= 0x80008000u;
+  }
+
+  float s[2 * KT][4];
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  cp_async_wait<1>();
+  __syncthreads();  // K is in shared memory
+  if (live) {
+    for (int c = 0; c < nch; ++c) {
+      mma_scores<D, KT>(s, qa, ks, c, nkt, lane);
+      mask_tail<KT>(s, c, seq, lane);
+      update_max<KT>(s, m, l, sl2);
+      chunk_exp<KT>(s, m, sl2, c, nkt, l);  // with one chunk, s keeps e for pass 2
+    }
+    quad_sum(l);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // V is in shared memory
+  if (!live) return;
+
+  const float rl[2] = {1.f / l[0], 1.f / l[1]};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int vr = (lane & 7) + (((lane >> 3) & 1) << 3);  // ldmatrix.trans row
+  const int vc = lane >> 4;                              // and chunk within 16 d
+  for (int c = 0; c < nch; ++c) {
+    if (nch > 1) {
+      float unused[2] = {0.f, 0.f};
+      mma_scores<D, KT>(s, qa, ks, c, nkt, lane);
+      mask_tail<KT>(s, c, seq, lane);
+      chunk_exp<KT>(s, m, sl2, c, nkt, unused);
+    }
+    uint32_t pa[KT][4];
+    pack_p<KT>(pa, s, rl);
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      const int kt = c * KT + t;
+      if (kt >= nkt) continue;
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, vs + 2 * swz<D>(16 * kt + vr, 2 * dp + vc));
+        mma_bf16(acc[2 * dp], pa[t], bv[0], bv[1]);
+        mma_bf16(acc[2 * dp + 1], pa[t], bv[2], bv[3]);
+      }
+    }
+  }
+  store_o<D>(acc, hd.o + ((static_cast<int64_t>(hd.b) * seq + r0) * H + hd.h) * D +
+                      2 * (lane & 3), static_cast<int64_t>(H) * D, r0, seq);
+}
+
+// K and V rows of one head: T rounded up to 16 rows (to 64 at D = 64, the
+// wgmma kernel's 64-key groups).
+size_t bf16_smem_bytes(int seq, int d) {
+  const int unit = d == 64 ? 64 : 16;
+  return 2 * static_cast<size_t>((seq + unit - 1) / unit * unit) * d * sizeof(bf16);
+}
+
+// ------------------------------------------------ launch
+
+// Raise a kernel's dynamic shared memory limit when a launch needs more than
+// before (once per size, not on every launch: launches may be captured into
+// a CUDA graph).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, size_t smem, size_t& allowed) {
+  if (smem <= allowed) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err == cudaSuccess) allowed = smem;
+  return err;
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int seq, int H,
+               const int64_t* s, float scale, cudaStream_t stream) {
+  const size_t smem = f32_smem_bytes(seq, D);
+  auto kern = mha_small_t_kernel<float, D>;
+  static size_t allowed = 0;
+  cudaError_t err = allow_smem(kern, smem, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(B * H, (seq + kRowsPerBlock - 1) / kRowsPerBlock);
   kern<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, seq, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
-      s[8], scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, seq, s[0], s[1], s[2], s[3],
+      s[4], s[5], s[6], s[7], s[8], scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int seq,
-           int H, int D, const int64_t* s, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_d<T, 16>(q, k, v, o, B, seq, H, s, scale, st);
-    case 32: return launch_d<T, 32>(q, k, v, o, B, seq, H, s, scale, st);
-    case 64: return launch_d<T, 64>(q, k, v, o, B, seq, H, s, scale, st);
-    case 128: return launch_d<T, 128>(q, k, v, o, B, seq, H, s, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+using Bf16Kernel = void (*)(const bf16*, const bf16*, const bf16*, bf16*, int, int, int64_t,
+                            int64_t, int64_t, int64_t, int64_t, int64_t, int64_t, int64_t,
+                            int64_t, float);
+
+// One bf16 kernel instance with `threads` a block, on a grid of (B H,
+// tiles) blocks.
+template <Bf16Kernel kKern>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int seq, int H,
+                int D, int tiles, int threads, const int64_t* s, float scale,
+                cudaStream_t stream) {
+  const size_t smem = bf16_smem_bytes(seq, D);
+  static size_t allowed = 0;
+  cudaError_t err = allow_smem(kKern, smem, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(B * H, tiles);
+  kKern<<<grid, threads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), H, seq, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wgmma kernel for kt 16-key tiles, kt a multiple of 4 (T <= 256).
+template <int KT>
+int launch_wgmma(int kt, const void* q, const void* k, const void* v, void* o, int B, int seq,
+                 int H, int tiles, const int64_t* s, float scale, cudaStream_t stream) {
+  if (kt == KT)
+    return launch_bf16<mha_small_t_wgmma_kernel<KT, false>>(q, k, v, o, B, seq, H, 64, tiles,
+                                                             128, s, scale, stream);
+  if constexpr (KT < 16) return launch_wgmma<KT + 4>(kt, q, k, v, o, B, seq, H, tiles, s, scale,
+                                                     stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -195,13 +797,51 @@ extern "C" {
 int mha_small_t_f32(const void* q, const void* k, const void* v, void* o, int B,
                     int seq, int H, int D, const int64_t* strides, float scale,
                     void* stream) {
-  return launch<float>(q, k, v, o, B, seq, H, D, strides, scale, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_f32<16>(q, k, v, o, B, seq, H, strides, scale, st);
+    case 32: return launch_f32<32>(q, k, v, o, B, seq, H, strides, scale, st);
+    case 64: return launch_f32<64>(q, k, v, o, B, seq, H, strides, scale, st);
+    case 128: return launch_f32<128>(q, k, v, o, B, seq, H, strides, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
+// q, k, v rows must start on 16-byte boundaries (checked by the wrapper).
 int mha_small_t_bf16(const void* q, const void* k, const void* v, void* o, int B,
                      int seq, int H, int D, const int64_t* strides, float scale,
                      void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, seq, H, D, strides, scale, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  constexpr int mt = 32 * kMmaWarps;
+  const int mr = (seq + 16 * kMmaWarps - 1) / (16 * kMmaWarps);  // mma.sync row tiles
+  if (D == 64) {  // wgmma: T <= 256 in one chunk of 64-key groups, longer T in chunks
+    // blocks per head: enough for about two blocks on every SM, each
+    // staging K and V once for all of its 64-row query tiles
+    static int sms = 0;
+    if (sms == 0) {
+      int dev = 0;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const int ntiles = (seq + 63) / 64;
+    const int tiles = std::max(1, std::min(ntiles, 2 * sms / std::max(1, B * H)));
+    if (seq > 256)
+      return launch_bf16<mha_small_t_wgmma_kernel<4, true>>(q, k, v, o, B, seq, H, D, tiles,
+                                                             128, strides, scale, st);
+    return launch_wgmma<4>(4 * ((seq + 63) / 64), q, k, v, o, B, seq, H, tiles, strides, scale,
+                           st);
+  }
+  switch (D) {
+    case 16: return launch_bf16<mha_small_t_mma_kernel<16>>(q, k, v, o, B, seq, H, D, mr, mt,
+                                                            strides, scale, st);
+    case 32: return launch_bf16<mha_small_t_mma_kernel<32>>(q, k, v, o, B, seq, H, D, mr, mt,
+                                                            strides, scale, st);
+    case 128: return launch_bf16<mha_small_t_mma_kernel<128>>(q, k, v, o, B, seq, H, D, mr,
+                                                              mt, strides, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

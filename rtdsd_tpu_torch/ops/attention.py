@@ -4,9 +4,10 @@
 :func:`mha_small_t` takes (B, T, H, D) query, key and value (the BTHD layout
 of ``jax.nn.dot_product_attention``) and returns the attention output in the
 same layout and dtype. On a CUDA tensor it launches the hand-written kernel
-in ``csrc/mha_small_t.cu`` (see the note at its top for the design); on a CPU
-tensor it runs :func:`mha_small_t_reference`, the plain PyTorch version of
-the same arithmetic.
+in ``csrc/mha_small_t.cu`` (see the note at its top for the design: bf16 on
+the tensor cores, float32 on the CUDA cores); on a CPU tensor it runs
+:func:`mha_small_t_reference`, the plain PyTorch version of the same
+arithmetic.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ _SIGNATURES = {name: [_P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P]
                for name in ("mha_small_t_f32", "mha_small_t_bf16")}
 HEAD_DIMS = (16, 32, 64, 128)
 SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
-_WARPS = 8
+_WARPS = 8            # warps of the float32 kernel's block
 
 
 def mha_small_t_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,10 +39,36 @@ def mha_small_t_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def smem_bytes(t: int, d: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block: K and V rows padded by a 32-bit
-    word, plus one f32 score row per warp."""
-    size = torch.empty((), dtype=dtype).element_size()
-    return 2 * t * (d + 4 // size) * size + _WARPS * t * 4
+    """Dynamic shared memory of one block. bf16: K and V of the head, T
+    rounded up to rows of D values: to 16 rows, or to 64 at D=64, where
+    the kernel takes keys in 64-key groups. float32: K and V rows padded by
+    a 32-bit word, plus one f32 score row per warp."""
+    if dtype == torch.bfloat16:
+        unit = 64 if d == 64 else 16
+        return 2 * -(-t // unit) * unit * d * 2
+    return 2 * t * (d + 1) * 4 + _WARPS * t * 4
+
+
+def supports(t: int, d: int, dtype: torch.dtype) -> bool:
+    """Whether the CUDA kernel takes sequence length ``t`` at head dim ``d``
+    in ``dtype``."""
+    return (dtype in (torch.float32, torch.bfloat16) and d in HEAD_DIMS
+            and t >= 1 and smem_bytes(t, d, dtype) <= SMEM_LIMIT)
+
+
+def max_seq(d: int, dtype: torch.dtype) -> int:
+    """The longest T the CUDA kernel takes at head dim ``d``."""
+    t = SMEM_LIMIT // (2 * d * torch.empty((), dtype=dtype).element_size())
+    while not supports(t, d, dtype):
+        t -= 1
+    return t
+
+
+def _rows_aligned(x: torch.Tensor) -> bool:
+    """Every (b, t, h) row of ``x`` starts on a 16-byte boundary."""
+    size = x.element_size()
+    return x.data_ptr() % 16 == 0 and all(
+        s * size % 16 == 0 for s, n in zip(x.stride()[:3], x.shape[:3]) if n > 1)
 
 
 def mha_small_t(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -63,8 +90,11 @@ def mha_small_t(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {d} not supported (have {HEAD_DIMS})")
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("the head dimension of q, k, v must be contiguous")
-    if smem_bytes(t, d, q.dtype) > SMEM_LIMIT:
+    if not supports(t, d, q.dtype):
         raise ValueError(f"T={t} is too long for mha_small_t's shared memory")
+    if q.dtype == torch.bfloat16 and not all(map(_rows_aligned, (q, k, v))):
+        raise ValueError("the bf16 kernel copies q, k, v rows in 16-byte "
+                         "pieces: each row must start on a 16-byte boundary")
     if scale is None:
         scale = d ** -0.5
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)

@@ -80,6 +80,27 @@ def test_mha_cpu_path_launches_nothing():
     assert attention.mha_small_t.launches == before
 
 
+def _cuda_core_limit(d, size):
+    """The longest T the CUDA-core kernel took in either dtype: K and V rows
+    padded by a 32-bit word, plus one f32 score row for each of 8 warps."""
+    return attention.SMEM_LIMIT // (2 * (d + 4 // size) * size + 8 * 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", attention.HEAD_DIMS)
+def test_mha_supports_every_t_the_cuda_core_kernel_took(dtype, d):
+    size = torch.empty((), dtype=dtype).element_size()
+    limit = attention.max_seq(d, dtype)
+    # no narrowing: every T the CUDA-core kernel took is still taken
+    assert limit >= _cuda_core_limit(d, size)
+    assert all(attention.supports(t, d, dtype) for t in range(1, limit + 1))
+    assert not attention.supports(limit + 1, d, dtype)
+    assert not attention.supports(0, d, dtype)
+    assert not attention.supports(8, d + 8, dtype)
+    if dtype == torch.float32:        # the float32 kernel is unchanged
+        assert limit == _cuda_core_limit(d, size)
+
+
 # ------------------------------------------------------------------ GAT
 
 def _gat_inputs(seed, b, n, d, do):
@@ -124,24 +145,80 @@ def test_kernel_sources_and_build_dir():
 
 # ------------------------------------------------- kernels on the card
 
+_MHA_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+# bf16, besides _MHA_TOL: |got - want| / |want| over the whole output, which
+# rounding keeps near 1e-3 and a dropped 16-key tile at long T moves by ~0.1
+_MHA_REL_NORM = 1e-2
+# (dtype, b, t, h, d, layout): the main shape and the edges of the bf16
+# kernels' tiling (T around 16-key tiles, 64-key groups and the 256-key
+# register chunk, the two-pass paths past it, the longest T at every head
+# dim); "stack" takes q, k, v from a (3, B, ...) stack, "proj" slices them
+# from one (B, T, 3 H D) projection; (16, 257, 16, 64) gives a block of the
+# D=64 kernel several query tiles
+_MHA_CASES = (
+    [(dt, 2, t, h, d, "stack") for dt in (torch.float32, torch.bfloat16)
+     for t, h, d in ((199, 16, 64), (37, 4, 16), (50, 2, 128))]
+    + [(torch.bfloat16, 2, t, 4, 64, "stack") for t in (1, 17, 37, 208, 256, 257)]
+    + [(torch.bfloat16, 2, t, 4, d, "stack")
+       for t, d in ((50, 16), (50, 32), (300, 16), (300, 32), (200, 128))]
+    + [(torch.bfloat16, 2, attention.max_seq(d, torch.bfloat16), 4, d, "stack")
+       for d in attention.HEAD_DIMS]
+    + [(torch.bfloat16, 2, 199, 16, 64, "proj"), (torch.bfloat16, 2, 37, 2, 16, "proj"),
+       (torch.bfloat16, 16, 257, 16, 64, "proj")])
+
+
+def _assert_mha_close(got, want, dtype):
+    # f32: summation order; bf16: the output may round one step apart
+    # (a bf16 step is 2^-8 of the value, 7.8e-3 at 1)
+    got, want = got.float(), want.float()
+    rtol, atol = _MHA_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        assert ((got - want).norm() / want.norm()).item() <= _MHA_REL_NORM
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-4, 1e-5),
-                                             (torch.bfloat16, 1e-2, 1e-2)])
-@pytest.mark.parametrize("t,h,d", [(199, 16, 64), (37, 4, 16), (50, 2, 128)])
-def test_mha_kernel_matches_plain(cuda, dtype, rtol, atol, t, h, d):
+@pytest.mark.parametrize("dtype,b,t,h,d,layout", _MHA_CASES)
+def test_mha_kernel_matches_plain(cuda, dtype, b, t, h, d, layout):
     g = torch.Generator(device="cuda").manual_seed(0)
-    # q, k, v as strided views of one fused projection, as a caller may pass
-    qkv = torch.randn((3, t, h, d), generator=g, device=cuda, dtype=dtype)
-    qkv = qkv.expand(2, 3, t, h, d).clone().transpose(0, 1)
-    q, k, v = qkv[0] * 0.5, qkv[1], qkv[2]
+    if layout == "stack":
+        # strided views of one stacked tensor, as a caller may pass
+        qkv = torch.randn((3, t, h, d), generator=g, device=cuda, dtype=dtype)
+        qkv = qkv.expand(b, 3, t, h, d).clone().transpose(0, 1)
+        q, k, v = qkv[0] * 0.5, qkv[1], qkv[2]
+    else:
+        x = torch.randn((b, t, 3 * h * d), generator=g, device=cuda, dtype=dtype)
+        q, k, v = (x[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d))
+                   for i in range(3))
     before = attention.mha_small_t.launches
     got = attention.mha_small_t(q, k, v)
     torch.cuda.synchronize()
     assert attention.mha_small_t.launches == before + 1
-    want = attention.mha_small_t_reference(q, k, v)
-    # f32: summation order; bf16: the output may round one step apart
-    # (a bf16 step is 2^-8 of the value, 7.8e-3 at 1)
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    _assert_mha_close(got, attention.mha_small_t_reference(q, k, v), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 64])          # the mma.sync and wgmma kernels
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+def test_mha_bf16_kernel_any_scale(cuda, d, scale):
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn((2, 50, 4, d), generator=g, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(3))
+    got = attention.mha_small_t(q, k, v, scale=scale)
+    want = attention.mha_small_t_reference(q, k, v, scale=scale)
+    _assert_mha_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_mha_bf16_kernel_refuses_unaligned_rows(cuda):
+    x = torch.zeros((1, 9, 4 * 16 + 1), device=cuda, dtype=torch.bfloat16)
+    q = x[..., 1:].unflatten(-1, (4, 16))       # rows start 2 bytes in
+    with pytest.raises(ValueError, match="16-byte"):
+        attention.mha_small_t(q, q, q)
+    with pytest.raises(ValueError, match="too long"):
+        big = torch.zeros((1, attention.max_seq(16, torch.bfloat16) + 1, 1, 16),
+                          device=cuda, dtype=torch.bfloat16)
+        attention.mha_small_t(big, big, big)
 
 
 @pytest.mark.gpu
