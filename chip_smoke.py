@@ -8,10 +8,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its path gives it (batch 16), with times of the kernel, the plain
    version, the least time the card could take (bound) and, for attention,
    ``scaled_dot_product_attention`` as the library yardstick (timed here,
-   never used by the port): attention (bf16 also at the edges of its
-   tiling: T 1, 17, 37, 208, 256, 257 and the longest T the wrapper takes at
-   D=64, D 16, 32, 128, q, k, v views of one projection, and a negative
-   scale), the two GAT kernels,
+   never used by the port, its kernels named by the profiler): attention in
+   float32 and bf16, each also at the edges of its kernels' tiling (bf16:
+   T 1, 17, 37, 208, 256, 257 and the longest T the wrapper takes at D=64,
+   D 16, 32, 128; float32: T 1, 17, 63, 64, 65, 199, 256, 257, both sides of
+   the tiled kernel's limit and the longest T at every head dim; q, k, v
+   views of one projection, a negative scale, and in float32 a zero one),
+   with ptxas's registers and spills of the attention kernels; the two GAT
+   kernels,
    ``quantize_int8`` at the flagship's three matrix shapes in both rounding
    modes (bit for bit, plus statistics of the stochastic mode), ``ln_gelu``
    and ``conv_ln_gelu_grouped`` at the six front-end layer geometries;
@@ -33,8 +37,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    with every kernel swapped for its plain version (TF32 off): logits agree;
    then steady-state ms per clip (f32 at batch 16; bf16, w8 and w8a8 at
    batch 16 and batch 1, timed in turns over five rounds) and
-   torch.profiler breakdowns of the device time of one bf16 batch of 16
-   and of one w8a8 batch of 16 and of 1.
+   torch.profiler breakdowns of the device time of one f32 and one bf16
+   batch of 16 and of one w8a8 batch of 16 and of 1.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit line, and as its last line ``{"ok": true, "device": {...}}``. Scratch
@@ -131,51 +135,83 @@ def bound_ms(nbytes: float, flops: float, kind: str):
 
 # ------------------------------------------------------------ phase 3
 
-def check_bf16_attention(got, want, what: str) -> None:
-    """Hold a bf16 attention output to ATTN_TOL and ATTN_REL_NORM."""
+def check_attention_close(got, want, what: str) -> None:
+    """Hold an attention output to ATTN_TOL of its dtype and, in bf16, to
+    ATTN_REL_NORM."""
+    kind = "bf16" if got.dtype == torch.bfloat16 else "f32"
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
     rel = ((got - want).norm() / want.norm()).item()
-    rtol, atol = ATTN_TOL["bf16"]
-    log(f"mha_small_t bf16 ({what}): max|d| {err:.3g} (rtol {rtol}, atol "
-        f"{atol}), relative norm {rel:.3g} (limit {ATTN_REL_NORM})")
+    rtol, atol = ATTN_TOL[kind]
+    log(f"mha_small_t {kind} ({what}): max|d| {err:.3g} (rtol {rtol}, atol "
+        f"{atol}), relative norm {rel:.3g}"
+        + (f" (limit {ATTN_REL_NORM})" if kind == "bf16" else ""))
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
-    if not rel <= ATTN_REL_NORM:
+    if kind == "bf16" and not rel <= ATTN_REL_NORM:
         raise AssertionError(f"mha_small_t bf16 ({what}): relative norm {rel:.3g}")
 
 
 def attention_edges(dev, g) -> None:
-    """The bf16 kernel against its plain version at the edges of its tiling:
-    T around 16-key tiles, 64-key groups and the 256-key register chunk,
-    the two-pass paths past it (also with several query tiles per block at
-    (16, 257, 16, 64)), the longest T the wrapper takes at every head dim,
-    and q, k, v as strided views of one (B, T, 3 H D) projection."""
-    from rtdsd_tpu_torch.ops.attention import (HEAD_DIMS, max_seq,
-                                               mha_small_t,
+    """Both dtypes' kernels against their plain version at the edges of
+    their tiling, and q, k, v as strided views of one (B, T, 3 H D)
+    projection. bf16: T around 16-key tiles, 64-key groups and the 256-key
+    register chunk, the two-pass paths past it (also with several query
+    tiles per block at (16, 257, 16, 64)), the longest T the wrapper takes
+    at every head dim. float32: T around 32-key strips and 64-row query
+    tiles, both sides of the tiled kernel's limit
+    (attention.f32_tiled_max_seq), the longest T at every head dim; a
+    negative and a zero scale in both."""
+    from rtdsd_tpu_torch.ops.attention import (HEAD_DIMS, f32_tiled_max_seq,
+                                               max_seq, mha_small_t,
                                                mha_small_t_reference)
 
-    cases = ([(2, t, 4, 64) for t in (1, 17, 37, 208, 256, 257)]
-             + [(2, 50, 4, d) for d in (16, 32, 128)]
-             + [(2, 300, 4, 16), (2, 300, 4, 32), (2, 200, 4, 128)]
-             + [(2, max_seq(d, torch.bfloat16), 4, d) for d in HEAD_DIMS])
-    views = [(16, 257, 16, 64), (B, 199, 16, 64)]
-    for d in (32, 64):                   # a negative scale, on both kernels
-        q, k, v = (torch.randn((2, 50, 4, d), generator=g, device=dev,
-                               dtype=torch.bfloat16) for _ in range(3))
-        got = mha_small_t(q, k, v, scale=-0.3)
-        want = mha_small_t_reference(q, k, v, scale=-0.3)
-        check_bf16_attention(got, want, f"B=2, T=50, H=4, D={d}, scale -0.3")
-    for b, t, h, d in cases + views:
-        x = torch.randn((b, t, 3 * h * d), generator=g, device=dev,
-                        dtype=torch.bfloat16)
-        q, k, v = (x[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d))
-                   for i in range(3))
-        if (b, t, h, d) in cases:                  # separate tensors
-            q, k, v = (y.contiguous() for y in (q, k, v))
-        got, want = mha_small_t(q, k, v), mha_small_t_reference(q, k, v)
-        check_bf16_attention(got, want, f"B={b}, T={t}, H={h}, D={d}"
-                             + ("" if (b, t, h, d) in cases
-                                else ", views of one projection"))
+    cases = {torch.bfloat16: (
+        [(2, t, 4, 64) for t in (1, 17, 37, 208, 256, 257)]
+        + [(2, 50, 4, d) for d in (16, 32, 128)]
+        + [(2, 300, 4, 16), (2, 300, 4, 32), (2, 200, 4, 128)]
+        + [(2, max_seq(d, torch.bfloat16), 4, d) for d in HEAD_DIMS]),
+        torch.float32: (
+        [(2, t, 4, 64) for t in (1, 17, 63, 64, 65, 199, 256, 257)]
+        + [(2, 50, 4, d) for d in (16, 32, 128)]
+        + [(2, f32_tiled_max_seq(d) + e, 4, d) for d in (16, 32, 128)
+           for e in (0, 1)]
+        + [(2, max_seq(d, torch.float32), 4, d) for d in HEAD_DIMS])}
+    views = {torch.bfloat16: [(16, 257, 16, 64), (B, 199, 16, 64)],
+             torch.float32: [(2, 199, 16, 64), (16, 257, 16, 64)]}
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (32, 64):               # a negative and a zero scale
+            q, k, v = (torch.randn((2, 50, 4, d), generator=g, device=dev,
+                                   dtype=dtype) for _ in range(3))
+            for scale in ((-0.3,) if dtype == torch.bfloat16 else (-0.3, 0.0)):
+                got = mha_small_t(q, k, v, scale=scale)
+                want = mha_small_t_reference(q, k, v, scale=scale)
+                check_attention_close(got, want, f"B=2, T=50, H=4, D={d}, "
+                                                 f"scale {scale}")
+        for b, t, h, d in cases[dtype] + views[dtype]:
+            x = torch.randn((b, t, 3 * h * d), generator=g, device=dev,
+                            dtype=dtype)
+            q, k, v = (x[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d))
+                       for i in range(3))
+            if (b, t, h, d) in cases[dtype]:           # separate tensors
+                q, k, v = (y.contiguous() for y in (q, k, v))
+            got, want = mha_small_t(q, k, v), mha_small_t_reference(q, k, v)
+            check_attention_close(got, want, f"B={b}, T={t}, H={h}, D={d}"
+                                  + ("" if (b, t, h, d) in cases[dtype]
+                                     else ", views of one projection"))
+
+
+def kernel_names(fn) -> list:
+    """Names of the device kernels one call of ``fn`` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})
 
 
 def check_attention(dev) -> dict:
@@ -202,13 +238,15 @@ def check_attention(dev) -> dict:
                                    atol=atol)
         ms = device_ms(lambda: mha_small_t(q, k, v))
         plain = device_ms(lambda: mha_small_t_reference(q, k, v))
-        lib = device_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        lib = device_ms(sdpa)
         size = q.element_size()
         bnd, by = bound_ms(4 * B * t * h * d * size, 4 * B * h * t * t * d,
                            kind)
         log(f"  kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by})")
+            f"bound {bnd:.4f} ms ({by}); sdpa ran "
+            + "; ".join(n[:80] for n in kernel_names(sdpa)))
         rec[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                          bound_by=by, library_ms=lib,
                          shape=f"q,k,v ({B},{t},{h},{d}) {kind}")
@@ -698,7 +736,8 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'cached'})")
     for line in ptxas_summary("mha_small_t", ("wgmma_kernelILi16ELb0E",
-                                               "mha_small_t_kernelIfLi64E")):
+                                               "tiled_kernelILi64E",
+                                               "rows_kernelIfLi64E")):
         log(line)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -757,6 +796,7 @@ def main() -> int:
     if not torch.isfinite(with_kernels).all() or drift > LOGIT_TOL:
         raise RuntimeError(f"f32 logits drift {drift} > {LOGIT_TOL}")
     f32_ms = steady_ms_per_clip(model, waves)
+    profile_forward(model, waves, label="f32")
     del model
     bf16 = build_model(sd, torch.bfloat16, dev)
     bf16_ms = steady_ms_per_clip(bf16, waves)

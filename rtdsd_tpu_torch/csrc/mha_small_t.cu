@@ -4,7 +4,9 @@
 // (mha_small_t, body _mha_kernel). Per (batch, head): s = Q K^T with f32
 // accumulation, times `scale` in f32, padded keys out of the softmax, row max
 // and sum in f32, p = e / sum normalised in f32 and only then rounded to V's
-// dtype, then p V with f32 accumulation, rounded once to the output dtype.
+// dtype, then p V with f32 accumulation, rounded once to the output dtype
+// (the float32 tiled kernel, with no rounding of p, applies 1 / sum to the
+// sums of e V instead).
 // Inputs are read in their (B, T, H, D) layout through their strides (the
 // head dimension contiguous); the output is a contiguous (B, T, H, D) tensor.
 //
@@ -57,12 +59,46 @@
 // D = 64), so T reaches 3632 / 1808 / 896 / 448 at D = 16 /
 // 32 / 64 / 128 (ops/attention.py::max_seq).
 //
-// float32 (mha_small_t_kernel) stays on the CUDA cores: TF32 tensor cores
-// would not keep its accuracy. One block per (batch * head, tile of 64 query
-// rows); K and V in padded dynamic shared memory; each of the 8 warps owns a
-// query row at a time, keeps q in registers, computes its scores
-// lane-parallel over keys into a per-warp shared buffer, reduces max and sum
-// with shuffles, and accumulates p V lane-parallel over the head dimension.
+// float32 stays on the CUDA cores: TF32 tensor cores would not keep its
+// accuracy. At the XLSR shape the same 2.6 GFLOP take 0.0387 ms at the
+// H100's 67 TFLOP/s of FP32 FMAs, against 4 B T H D x 4 bytes = 52.2 MB of
+// q, k, v and o (0.0156 ms at 3.35 TB/s): bound by operations, so the FMAs
+// must be fed from registers, not one shared-memory load each.
+// Shape rule (ops/attention.py::f32_tiled): T up to 512 / 384 / 256 / 128 at
+// D = 16 / 32 / 64 / 128, where the tiled kernel's shared memory fits a
+// block's 227 KB, runs mha_small_t_tiled_kernel; longer T, up to 1383 / 785
+// / 421 / 218, runs mha_small_t_rows_kernel.
+//
+// mha_small_t_tiled_kernel (256 threads, one block an SM):
+// - A block owns a head (or, when B H is below the SM count, a share of its
+//   64-row query tiles). It stages K and V once with 16-byte cp.async (V
+//   behind K) into rows of D + 4 floats, 16-byte aligned, so that LDS.128 of
+//   consecutive rows spreads over the banks, zero-filled up to T_32 (T
+//   rounded up to 32 keys). Then it walks its query tiles, loading the next
+//   tile's Q during the softmax.
+// - Scores: S = (Q K^T) scale for the 64 x T_32 tile, a warp per task of 32
+//   rows x 32 keys, each thread a 4 x 8 micro-tile (rows lr + 8 i, keys lc +
+//   4 j) walking d in float4 steps: 4 Q and 8 K LDS.128 feed 128 FFMAs (the
+//   rows kernel: one shared load an FMA), the lanes of a quad sharing their
+//   K loads (see lane_rows8).
+// - Softmax in the 64 x (T_32 + 4) f32 score buffer in shared memory: a warp
+//   takes 8 rows at once, max and sum reduced by shuffles, e = 2^(s log2(e)
+//   - max log2(e)) (one FFMA and one ex2.approx a score) written back, and
+//   1 / sum kept a row.
+// - P V: a warp per task of 16 rows x 32 columns (32 x 16 at D = 16), each
+//   thread 4 rows x 4 adjacent columns, 4 keys a step: 4 P and 4 V LDS.128
+//   feed 64 FFMAs; the sums times 1 / sum are the output (p = e / sum applied
+//   after the product, the same up to rounding in f32).
+// Shared memory: 4 ((2 T_32 + 64) (D + 4) + 64 (T_32 + 5)) bytes; at T = 199,
+// D = 64: K 60.9 KB, V 60.9, Q 17.4, scores 58.4, 197.9 KB in all. So one
+// block holds an SM, and the 256 heads of a batch of 16 take two waves.
+//
+// mha_small_t_rows_kernel (long T): one block per (batch * head, tile of 64
+// query rows); K and V in dynamic shared memory, rows padded by one word;
+// each of the 8 warps owns a query row at a time, keeps q in registers,
+// computes its scores lane-parallel over keys into a per-warp shared buffer,
+// reduces max and sum with shuffles, and accumulates p V lane-parallel over
+// the head dimension.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,6 +108,38 @@
 #include <algorithm>
 
 namespace {
+
+// ------------------------------------------------ shared by all kernels
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy; src_bytes 0 fills the destination with zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+// 4-byte asynchronous copy (through L1); src_bytes 0 writes a zero.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x in one MUFU instruction (relative error about 2^-22); 2^-inf = 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // ------------------------------------------------ float32, CUDA cores
 
@@ -106,11 +174,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
-mha_small_t_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ o, int H, int seq,
-                   int64_t sqb, int64_t sqt, int64_t sqh,
-                   int64_t skb, int64_t skt, int64_t skh,
-                   int64_t svb, int64_t svt, int64_t svh, float scale) {
+mha_small_t_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ o, int H, int seq,
+                        int64_t sqb, int64_t sqt, int64_t sqh,
+                        int64_t skb, int64_t skt, int64_t skh,
+                        int64_t svb, int64_t svt, int64_t svh, float scale) {
   constexpr int KS = row_stride<T>(D);
   constexpr int PAIRS = D / 2;
   extern __shared__ __align__(16) unsigned char f32_smem[];
@@ -185,9 +253,259 @@ mha_small_t_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-size_t f32_smem_bytes(int seq, int d) {
+size_t rows_smem_bytes(int seq, int d) {
   return 2 * static_cast<size_t>(seq) * row_stride<float>(d) * sizeof(float) +
          static_cast<size_t>(kWarps) * seq * sizeof(float);
+}
+
+// The register-tiled kernel: kTileRows query rows of scores at a time, keys
+// staged in strips of kKeyStrip (T_32), rows padded by 4 floats.
+constexpr int kTiledThreads = 256;
+constexpr int kTiledWarps = kTiledThreads / 32;
+constexpr int kTileRows = 64;
+constexpr int kKeyStrip = 32;
+constexpr size_t kSmemLimit = 232448;  // bytes of shared memory a block may use
+
+__host__ __device__ constexpr int keys32(int seq) {
+  return (seq + kKeyStrip - 1) / kKeyStrip * kKeyStrip;
+}
+
+size_t tiled_smem_bytes(int seq, int d) {
+  const size_t tk = keys32(seq);
+  return sizeof(float) * ((2 * tk + kTileRows) * (d + 4) + kTileRows * (tk + 5));
+}
+
+// Copy `rows` rows of D floats (row stride st, from base) into shared memory
+// at dst (row stride D + 4); rows >= seq become zeros. 16-byte copies when
+// every row starts on a 16-byte boundary (vec), else 4-byte ones.
+template <int D>
+__device__ __forceinline__ void stage_f32(float* dst, const float* base, int64_t st, int rows,
+                                          int seq, bool vec) {
+  constexpr int S = D + 4;
+  if (vec) {
+    constexpr int R = D / 4;  // 16-byte chunks a row
+    for (int i = threadIdx.x; i < rows * R; i += kTiledThreads) {
+      const int r = i / R, c = 4 * (i % R);
+      const bool ok = r < seq;
+      cp_async16(smem_addr(dst + r * S + c), ok ? base + r * st + c : base, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * D; i += kTiledThreads) {
+      const int r = i / D, c = i % D;
+      const bool ok = r < seq;
+      cp_async4(smem_addr(dst + r * S + c), ok ? base + r * st + c : base, ok ? 4 : 0);
+    }
+  }
+}
+
+// Lane layout. An LDS.128 serves a warp's 512 bytes in 2 clocks at best,
+// and takes longer when the 4 lanes of a quad (4 consecutive lanes) read
+// different 16-byte chunks. A score task loads 8 K rows a step against 4 Q
+// rows, so the lanes of a quad share their key column (lane_cols4 is the
+// same over a quad) and differ in their rows; a quarter-warp holds 4 rows x
+// 2 key columns, and the 4 quarters are 2 x 2.
+__device__ __forceinline__ int lane_rows8(int lane) { return (lane & 3) | (lane >> 1 & 4); }
+__device__ __forceinline__ int lane_cols4(int lane) { return (lane >> 2 & 1) | (lane >> 3 & 2); }
+
+// ss[r][j] = (q_r . k_j) scale for rows r < 32 ngroups of the tile and keys
+// j < 32 nstrips: a warp per task of 32 rows x 32 keys, each thread the 4 x 8
+// micro-tile of rows lr + 8 i and keys lc + 4 j, d in float4 steps: 4 Q and
+// 8 K LDS.128 of consecutive rows, free of bank conflicts, feed 128 FFMAs.
+template <int D>
+__device__ __forceinline__ void tiled_scores(const float* qs, const float* ks, float* ss,
+                                             int sst, int ngroups, int nstrips, float scale,
+                                             int warp, int lane) {
+  constexpr int S = D + 4;
+  const int lr = lane_rows8(lane), lc = lane_cols4(lane);
+  for (int task = warp; task < ngroups * nstrips; task += kTiledWarps) {
+    const int g = task / nstrips, c = task - g * nstrips;
+    const float* qp = qs + (32 * g + lr) * S;
+    const float* kp = ks + (32 * c + lc) * S;
+    float acc[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[4], kv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(qp + 8 * i * S + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) kv[j] = *reinterpret_cast<const float4*>(kp + 4 * j * S + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[i][j] = fmaf(qv[i].x, kv[j].x, acc[i][j]);
+          acc[i][j] = fmaf(qv[i].y, kv[j].y, acc[i][j]);
+          acc[i][j] = fmaf(qv[i].z, kv[j].z, acc[i][j]);
+          acc[i][j] = fmaf(qv[i].w, kv[j].w, acc[i][j]);
+        }
+    }
+    float* sp = ss + (32 * g + lr) * sst + 32 * c + lc;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sp[8 * i * sst + 4 * j] = acc[i][j] * scale;
+  }
+}
+
+// Softmax of the tile's rows over the seq real keys, up to the division:
+// warp w takes rows w, w + 8, ..., all 8 at once (independent loads and
+// shuffles, to hide their latency). Row max in f32, e = 2^(s log2(e) - max
+// log2(e)) written back (0 for keys seq ... nk - 1, which P V reads against
+// V's zero rows), the row sum in f32 and inv[r] = 1 / sum; P V scales its
+// sums by inv[r], which is p = e (1 / sum) applied after the product. Rows
+// past T are finite (zero Q rows) or never read.
+__device__ __forceinline__ void tiled_softmax(float* ss, float* inv, int sst, int seq, int nk,
+                                              int warp, int lane) {
+  constexpr int R = kTileRows / kTiledWarps;
+  constexpr float kLog2e = 1.4426950408889634f;
+  float* rw = ss + warp * sst;  // row warp + kTiledWarps r
+  float m[R], l[R], x[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) m[r] = -INFINITY, l[r] = 0.f;
+  for (int j = lane; j < seq; j += 32)
+#pragma unroll
+    for (int r = 0; r < R; ++r) m[r] = fmaxf(m[r], rw[kTiledWarps * r * sst + j]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r) m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], o));
+#pragma unroll
+  for (int r = 0; r < R; ++r) m[r] *= kLog2e;
+  for (int j = lane; j < nk; j += 32) {
+    // all loads of the step before any store: the rows may alias as far as
+    // the compiler knows
+#pragma unroll
+    for (int r = 0; r < R; ++r) x[r] = rw[kTiledWarps * r * sst + j];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      x[r] = j < seq ? exp2_approx(fmaf(x[r], kLog2e, -m[r])) : 0.f;
+      l[r] += x[r];
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) rw[kTiledWarps * r * sst + j] = x[r];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r) l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
+  if (lane == 0)
+#pragma unroll
+    for (int r = 0; r < R; ++r) inv[warp + kTiledWarps * r] = 1.f / l[r];
+}
+
+// O rows r < rows of the tile (row stride ost) = P V over keys j < nk (a
+// multiple of 4): a warp per task of 4 LR rows x 4 LC columns, each thread 4
+// rows (lr + LR i) x 4 adjacent columns, 4 keys a step: P as one float4 of 4
+// keys a row (LR consecutive rows a load), V as one float4 a key; a quad
+// reads 2 chunks of each, a quarter-warp holds 2 rows x 4 column groups (4 x
+// 2 at D = 16), and the quarters are 2 x 2.
+template <int D>
+__device__ __forceinline__ void tiled_pv(const float* ss, const float* inv, int sst,
+                                         const float* vs, float* o, int64_t ost, int rows, int nk,
+                                         int warp, int lane) {
+  constexpr int S = D + 4;
+  constexpr int LC = D / 4 < 8 ? D / 4 : 8;  // lanes along the columns
+  constexpr int LR = 32 / LC;                // and along the rows
+  constexpr int NC = D / (4 * LC);           // column strips
+  const int lr = LC == 8 ? (lane & 1) | (lane >> 2 & 2) : lane_rows8(lane);
+  const int lc = LC == 8 ? (lane >> 1 & 3) | (lane >> 2 & 4) : lane_cols4(lane);
+  const int ngroups = (rows + 4 * LR - 1) / (4 * LR);
+  for (int task = warp; task < ngroups * NC; task += kTiledWarps) {
+    const int g = task / NC, col = 4 * (LC * (task - g * NC) + lc);
+    const int r0 = 4 * LR * g + lr;
+    const float* pp = ss + r0 * sst;
+    const float* vp = vs + col;
+    float4 acc[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+    for (int j = 0; j < nk; j += 4) {
+      float4 p[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = *reinterpret_cast<const float4*>(pp + LR * i * sst + j);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) vv[t] = *reinterpret_cast<const float4*>(vp + (j + t) * S);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float pk[4] = {p[i].x, p[i].y, p[i].z, p[i].w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          acc[i].x = fmaf(pk[t], vv[t].x, acc[i].x);
+          acc[i].y = fmaf(pk[t], vv[t].y, acc[i].y);
+          acc[i].z = fmaf(pk[t], vv[t].z, acc[i].z);
+          acc[i].w = fmaf(pk[t], vv[t].w, acc[i].w);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + LR * i;
+      const float w = inv[r];
+      if (r < rows)
+        *reinterpret_cast<float4*>(o + r * ost + col) =
+            make_float4(acc[i].x * w, acc[i].y * w, acc[i].z * w, acc[i].w * w);
+    }
+  }
+}
+
+// Blocks (blockIdx.x = batch * H + head, blockIdx.y = first query tile):
+// K, the first Q tile, then V staged with cp.async; then tiles blockIdx.y,
+// blockIdx.y + gridDim.y, ... each: scores (needs K and Q), softmax (the
+// next tile's Q in flight), P V (needs V).
+template <int D>
+__global__ void __launch_bounds__(kTiledThreads, 1)
+mha_small_t_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o, int H, int seq,
+                         int64_t sqb, int64_t sqt, int64_t sqh,
+                         int64_t skb, int64_t skt, int64_t skh,
+                         int64_t svb, int64_t svt, int64_t svh, float scale, int vec) {
+  constexpr int S = D + 4;
+  extern __shared__ __align__(16) float tiled_smem[];
+  const int tk = keys32(seq);
+  const int sst = tk + 4;  // score row stride
+  const int nk = (seq + 3) & ~3;  // keys P V takes, 4 a step
+  float* ks = tiled_smem;
+  float* vs = ks + tk * S;
+  float* qs = vs + tk * S;
+  float* ss = qs + kTileRows * S;
+  float* inv = ss + kTileRows * sst;  // 1 / row sum
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const float* qh = q + b * sqb + h * sqh;
+  stage_f32<D>(ks, k + b * skb + h * skh, skt, tk, seq, vec);
+  int r0 = blockIdx.y * kTileRows;
+  stage_f32<D>(qs, qh + r0 * sqt, sqt, kTileRows, seq - r0, vec);
+  cp_async_commit();
+  stage_f32<D>(vs, v + b * svb + h * svh, svt, tk, seq, vec);
+  cp_async_commit();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t ost = static_cast<int64_t>(H) * D;
+  for (; r0 < seq; r0 += kTileRows * gridDim.y) {
+    const int rows = min(kTileRows, seq - r0);
+    if (r0 == static_cast<int>(blockIdx.y) * kTileRows) {
+      cp_async_wait<1>();  // K and Q; V may still be in flight
+    } else {
+      cp_async_wait<0>();  // this tile's Q
+    }
+    __syncthreads();  // ... for every thread; and the last tile's P V is done
+    tiled_scores<D>(qs, ks, ss, sst, (rows + 31) / 32, tk / kKeyStrip, scale, warp, lane);
+    __syncthreads();  // scores complete; Q free
+    const int rn = r0 + kTileRows * gridDim.y;
+    if (rn < seq) stage_f32<D>(qs, qh + rn * sqt, sqt, kTileRows, seq - rn, vec);
+    cp_async_commit();  // (an empty group on the last tile)
+    tiled_softmax(ss, inv, sst, seq, nk, warp, lane);
+    cp_async_wait<1>();  // V
+    __syncthreads();
+    tiled_pv<D>(ss, inv, sst, vs, o + ((static_cast<int64_t>(b) * seq + r0) * H + h) * D, ost,
+                rows, nk, warp, lane);
+  }
 }
 
 // ------------------------------------------------ bf16, tensor cores
@@ -198,23 +516,6 @@ using bf16 = __nv_bfloat16;
 // tiles whose scores a warp holds in registers at once (halved at D = 128).
 constexpr int kMmaWarps = 4;
 template <int D> __host__ __device__ constexpr int key_tiles() { return D <= 64 ? 16 : 8; }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy; src_bytes 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -298,13 +599,6 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[M][4], const uint32_t (&a)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x in one MUFU instruction (relative error about 2^-22); 2^-inf = 0.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Element offset of 16-byte chunk c of shared-memory row r (D bf16 a row).
@@ -739,19 +1033,58 @@ cudaError_t allow_smem(Kernel kern, size_t smem, size_t& allowed) {
   return err;
 }
 
+// Streaming multiprocessors of the current device, read once.
+cudaError_t sm_count(int& sms) {
+  static int count = 0;
+  cudaError_t err = cudaSuccess;
+  if (count == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+  }
+  sms = count;
+  return err;
+}
+
+// The shape rule of the float32 path: the tiled kernel where its shared
+// memory fits, else the one-warp-per-row kernel.
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int seq, int H,
                const int64_t* s, float scale, cudaStream_t stream) {
-  const size_t smem = f32_smem_bytes(seq, D);
-  auto kern = mha_small_t_kernel<float, D>;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  const size_t tiled = tiled_smem_bytes(seq, D);
+  if (tiled <= kSmemLimit) {
+    auto kern = mha_small_t_tiled_kernel<D>;
+    static size_t allowed = 0;
+    int sms = 0;
+    cudaError_t err = sm_count(sms);
+    if (err == cudaSuccess) err = allow_smem(kern, tiled, allowed);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // 16-byte copies when every row of q, k and v starts on a 16-byte boundary
+    int64_t bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                   reinterpret_cast<uintptr_t>(v);
+    for (int i = 0; i < 9; ++i) bits |= s[i] * static_cast<int64_t>(sizeof(float));
+    // one block an SM: a block per head, or query tiles shared out while
+    // B H leaves SMs idle
+    const int ntiles = (seq + kTileRows - 1) / kTileRows;
+    const int tiles = std::max(1, std::min(ntiles, sms / std::max(1, B * H)));
+    kern<<<dim3(B * H, tiles), kTiledThreads, tiled, stream>>>(
+        qf, kf, vf, of, H, seq, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], scale,
+        (bits & 15) == 0);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem = rows_smem_bytes(seq, D);
+  auto kern = mha_small_t_rows_kernel<float, D>;
   static size_t allowed = 0;
   cudaError_t err = allow_smem(kern, smem, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(B * H, (seq + kRowsPerBlock - 1) / kRowsPerBlock);
-  kern<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, seq, s[0], s[1], s[2], s[3],
-      s[4], s[5], s[6], s[7], s[8], scale);
+  kern<<<grid, kWarps * 32, smem, stream>>>(qf, kf, vf, of, H, seq, s[0], s[1], s[2], s[3],
+                                            s[4], s[5], s[6], s[7], s[8], scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -793,7 +1126,9 @@ int launch_wgmma(int kt, const void* q, const void* k, const void* v, void* o, i
 
 extern "C" {
 
-// strides: 9 element strides, (b, t, h) for q, then k, then v.
+// strides: 9 element strides, (b, t, h) for q, then k, then v. float32 rows
+// may start anywhere; the tiled kernel copies 16 bytes at a time only where
+// all of them start on 16-byte boundaries.
 int mha_small_t_f32(const void* q, const void* k, const void* v, void* o, int B,
                     int seq, int H, int D, const int64_t* strides, float scale,
                     void* stream) {
@@ -817,14 +1152,9 @@ int mha_small_t_bf16(const void* q, const void* k, const void* v, void* o, int B
   if (D == 64) {  // wgmma: T <= 256 in one chunk of 64-key groups, longer T in chunks
     // blocks per head: enough for about two blocks on every SM, each
     // staging K and V once for all of its 64-row query tiles
-    static int sms = 0;
-    if (sms == 0) {
-      int dev = 0;
-      cudaError_t err = cudaGetDevice(&dev);
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
+    int sms = 0;
+    const cudaError_t err = sm_count(sms);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const int ntiles = (seq + 63) / 64;
     const int tiles = std::max(1, std::min(ntiles, 2 * sms / std::max(1, B * H)));
     if (seq > 256)

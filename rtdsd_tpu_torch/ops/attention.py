@@ -8,6 +8,11 @@ in ``csrc/mha_small_t.cu`` (see the note at its top for the design: bf16 on
 the tensor cores, float32 on the CUDA cores); on a CPU tensor it runs
 :func:`mha_small_t_reference`, the plain PyTorch version of the same
 arithmetic.
+
+float32 has two kernels, chosen by a rule on the shape (:func:`f32_tiled`):
+the register-tiled one for T up to 512 / 384 / 256 / 128 at D = 16 / 32 /
+64 / 128, where its shared memory fits, and the one-warp-per-row one for
+longer T.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ _SIGNATURES = {name: [_P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P]
                for name in ("mha_small_t_f32", "mha_small_t_bf16")}
 HEAD_DIMS = (16, 32, 64, 128)
 SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
-_WARPS = 8            # warps of the float32 kernel's block
+_WARPS = 8            # warps of the float32 one-warp-per-row kernel's block
+_TILE_ROWS = 64       # query rows of the float32 tiled kernel's score buffer
+_KEY_STRIP = 32       # keys of one of its score tasks
 
 
 def mha_small_t_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,14 +45,35 @@ def mha_small_t_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
+def f32_tiled_smem_bytes(t: int, d: int) -> int:
+    """Dynamic shared memory of the float32 tiled kernel's block: K and V of
+    the head (T rounded up to 32 keys) and a 64-row Q tile, rows padded to
+    D + 4 floats, the tile's 64 rows of scores, padded to T_32 + 4, and a
+    float a row for 1 / its sum."""
+    tk = -(-t // _KEY_STRIP) * _KEY_STRIP
+    return 4 * ((2 * tk + _TILE_ROWS) * (d + 4) + _TILE_ROWS * (tk + 5))
+
+
+def f32_tiled(t: int, d: int) -> bool:
+    """The shape rule of the float32 path: the register-tiled kernel runs
+    where its shared memory fits a block (T <= 512 / 384 / 256 / 128 at
+    D = 16 / 32 / 64 / 128), the one-warp-per-row kernel past that.
+    ``csrc/mha_small_t.cu::launch_f32`` applies the same rule."""
+    return f32_tiled_smem_bytes(t, d) <= SMEM_LIMIT
+
+
 def smem_bytes(t: int, d: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one block. bf16: K and V of the head, T
     rounded up to rows of D values: to 16 rows, or to 64 at D=64, where
-    the kernel takes keys in 64-key groups. float32: K and V rows padded by
-    a 32-bit word, plus one f32 score row per warp."""
+    the kernel takes keys in 64-key groups. float32: the tiled kernel's
+    (:func:`f32_tiled_smem_bytes`) where it runs, else the one-warp-per-row
+    kernel's: K and V rows padded by a 32-bit word, plus one f32 score row
+    per warp."""
     if dtype == torch.bfloat16:
         unit = 64 if d == 64 else 16
         return 2 * -(-t // unit) * unit * d * 2
+    if f32_tiled(t, d):
+        return f32_tiled_smem_bytes(t, d)
     return 2 * t * (d + 1) * 4 + _WARPS * t * 4
 
 
@@ -60,6 +88,15 @@ def max_seq(d: int, dtype: torch.dtype) -> int:
     """The longest T the CUDA kernel takes at head dim ``d``."""
     t = SMEM_LIMIT // (2 * d * torch.empty((), dtype=dtype).element_size())
     while not supports(t, d, dtype):
+        t -= 1
+    return t
+
+
+def f32_tiled_max_seq(d: int) -> int:
+    """The longest T the float32 register-tiled kernel takes at head dim
+    ``d`` (:func:`f32_tiled`)."""
+    t = max_seq(d, torch.float32)
+    while not f32_tiled(t, d):
         t -= 1
     return t
 

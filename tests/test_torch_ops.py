@@ -44,10 +44,13 @@ def _qkv(seed, shape, dtype=np.float32):
 
 # ------------------------------------------------------------- attention
 
+# T=37: not a multiple of 16; at D=64 also T=65, one row past a 64-row
+# query tile and one key past two 32-key strips of the float32 tiled kernel
+@pytest.mark.parametrize("shape", [(2, 37, 4, 16), (2, 37, 4, 64), (2, 65, 4, 64)])
 @pytest.mark.parametrize("scale", [None, 0.3])
-def test_mha_plain_matches_jax_f32(jx, scale):
+def test_mha_plain_matches_jax_f32(jx, scale, shape):
     jax, jnp, jax_mha, _ = jx
-    q, k, v = _qkv(0, (2, 37, 4, 16))           # T=37: not a multiple of 16
+    q, k, v = _qkv(0, shape)
     got = attention.mha_small_t(*(torch.from_numpy(a) for a in (q, k, v)),
                                 scale=scale).numpy()
     want = np.asarray(jax_mha(*(jnp.asarray(a) for a in (q, k, v)),
@@ -97,8 +100,24 @@ def test_mha_supports_every_t_the_cuda_core_kernel_took(dtype, d):
     assert not attention.supports(limit + 1, d, dtype)
     assert not attention.supports(0, d, dtype)
     assert not attention.supports(8, d + 8, dtype)
-    if dtype == torch.float32:        # the float32 kernel is unchanged
+    if dtype == torch.float32:        # long T still runs that kernel
         assert limit == _cuda_core_limit(d, size)
+
+
+@pytest.mark.parametrize("d,limit", [(16, 512), (32, 384), (64, 256), (128, 128)])
+def test_mha_f32_tiled_rule(d, limit):
+    # the rule on the shape that picks the float32 kernel: the tiled one up
+    # to the stated limit (its shared memory fits a block), the
+    # one-warp-per-row one past it, up to max_seq; the XLSR shape is tiled
+    assert attention.f32_tiled_max_seq(d) == limit
+    assert all(attention.f32_tiled(t, d) for t in range(1, limit + 1))
+    assert attention.smem_bytes(limit, d, torch.float32) <= attention.SMEM_LIMIT
+    assert attention.smem_bytes(limit, d, torch.float32) == \
+        attention.f32_tiled_smem_bytes(limit, d)
+    assert attention.supports(limit + 1, d, torch.float32)
+    assert attention.smem_bytes(limit + 1, d, torch.float32) == \
+        2 * (limit + 1) * (d + 1) * 4 + 8 * (limit + 1) * 4
+    assert attention.f32_tiled(199, 64)
 
 
 # ------------------------------------------------------------------ GAT
@@ -152,9 +171,11 @@ _MHA_REL_NORM = 1e-2
 # (dtype, b, t, h, d, layout): the main shape and the edges of the bf16
 # kernels' tiling (T around 16-key tiles, 64-key groups and the 256-key
 # register chunk, the two-pass paths past it, the longest T at every head
-# dim); "stack" takes q, k, v from a (3, B, ...) stack, "proj" slices them
-# from one (B, T, 3 H D) projection; (16, 257, 16, 64) gives a block of the
-# D=64 kernel several query tiles
+# dim) and of the float32 kernels' (T around 32-key strips and 64-row query
+# tiles, both sides of the tiled kernel's limit, the longest T); "stack"
+# takes q, k, v from a (3, B, ...) stack, "proj" slices them from one
+# (B, T, 3 H D) projection; at (16, 257, 16, 64) a bf16 block, and at
+# (16, 199, 16, 64) a float32 tiled block, walks several query tiles
 _MHA_CASES = (
     [(dt, 2, t, h, d, "stack") for dt in (torch.float32, torch.bfloat16)
      for t, h, d in ((199, 16, 64), (37, 4, 16), (50, 2, 128))]
@@ -164,7 +185,14 @@ _MHA_CASES = (
     + [(torch.bfloat16, 2, attention.max_seq(d, torch.bfloat16), 4, d, "stack")
        for d in attention.HEAD_DIMS]
     + [(torch.bfloat16, 2, 199, 16, 64, "proj"), (torch.bfloat16, 2, 37, 2, 16, "proj"),
-       (torch.bfloat16, 16, 257, 16, 64, "proj")])
+       (torch.bfloat16, 16, 257, 16, 64, "proj")]
+    + [(torch.float32, 2, t, 4, 64, "stack") for t in (1, 17, 63, 64, 65, 199, 256, 257)]
+    + [(torch.float32, 2, 50, 4, d, "stack") for d in (16, 32, 128)]
+    + [(torch.float32, 2, attention.f32_tiled_max_seq(d) + e, 4, d, "stack")
+       for d in (16, 32, 128) for e in (0, 1)]
+    + [(torch.float32, 2, attention.max_seq(d, torch.float32), 4, d, "stack")
+       for d in attention.HEAD_DIMS]
+    + [(torch.float32, b, t, 16, 64, "proj") for b, t in ((2, 199), (16, 199), (16, 257))])
 
 
 def _assert_mha_close(got, want, dtype):
@@ -198,15 +226,30 @@ def test_mha_kernel_matches_plain(cuda, dtype, b, t, h, d, layout):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [32, 64])          # the mma.sync and wgmma kernels
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [32, 64])          # bf16: the mma.sync and wgmma kernels
 @pytest.mark.parametrize("scale", [-0.3, 0.0])
-def test_mha_bf16_kernel_any_scale(cuda, d, scale):
+def test_mha_kernel_any_scale(cuda, dtype, d, scale):
     g = torch.Generator(device="cuda").manual_seed(1)
     q, k, v = (torch.randn((2, 50, 4, d), generator=g, device=cuda,
-                           dtype=torch.bfloat16) for _ in range(3))
+                           dtype=dtype) for _ in range(3))
     got = attention.mha_small_t(q, k, v, scale=scale)
     want = attention.mha_small_t_reference(q, k, v, scale=scale)
-    _assert_mha_close(got, want, torch.bfloat16)
+    _assert_mha_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [199, 300])        # the tiled and the rows kernel
+def test_mha_f32_kernel_takes_unaligned_rows(cuda, t):
+    # float32 rows may start anywhere: the tiled kernel then copies 4 bytes
+    # at a time
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((2, t, 3 * 4 * 64 + 1), generator=g, device=cuda)
+    q, k, v = (x[..., 1 + i * 256:1 + (i + 1) * 256].unflatten(-1, (4, 64))
+               for i in range(3))
+    assert q.data_ptr() % 16 != 0
+    _assert_mha_close(attention.mha_small_t(q, k, v),
+                      attention.mha_small_t_reference(q, k, v), torch.float32)
 
 
 @pytest.mark.gpu
