@@ -15,12 +15,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the tiled kernel's limit and the longest T at every head dim; q, k, v
    views of one projection, a negative scale, and in float32 a zero one),
    with ptxas's registers and spills of the attention kernels; the two GAT
-   kernels,
+   functions at the main path's shapes and at the edges of the tiled body
+   (N at 1, at one 4-key group and one past it, at a query-tile boundary,
+   the largest N it takes and one past, which the rows body takes; D 16, 32,
+   128; Do 8, 256 and an odd Do on the rows body up to its largest N; n1 at
+   0, at a boundary and at N; batch 1; a bf16 ``x`` view and the model's
+   transposed-view kernel, bit for bit against contiguous float32 copies),
+   the tiled body's tanh against ``tanhf``, ptxas's registers and spills
+   of both GAT bodies, and at the main path's shapes the tiled body timed in
+   turns with the rows body (the one-pair-a-thread body of earlier
+   versions), one call a CUDA graph and ten;
    ``quantize_int8`` at the flagship's three matrix shapes in both rounding
    modes (bit for bit, plus statistics of the stochastic mode), ``ln_gelu``
    and ``conv_ln_gelu_grouped`` at the six front-end layer geometries;
-4. the paths, each with every launch counter set to 0 just before it and
-   read just after:
+4. the eval loader on the main path's track: the native (C++, built with
+   g++ at first use, the CLI's) and the Python decode paths of
+   ``EvalLoader`` give identical batches of
+   first-N crops at 16 kHz; host decode ms per batch of 16 four-second
+   clips for each;
+   then the paths, each with every launch counter set to 0 just before it
+   and read just after:
    a. the main path: a full-width XLSR_AASIST (24 layers, width 1024,
       random weights from seed 0) saved as a reference-named ``.pt``, 32
       synthetic four-second clips scored in bf16 through
@@ -38,7 +52,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    then steady-state ms per clip (f32 at batch 16; bf16, w8 and w8a8 at
    batch 16 and batch 1, timed in turns over five rounds) and
    torch.profiler breakdowns of the device time of one f32 and one bf16
-   batch of 16 and of one w8a8 batch of 16 and of 1.
+   batch of 16 and of one w8a8 batch of 16 and of 1, and the kernels that
+   the bf16 batch's six GAT calls launch (the GAT kernels and any cast or
+   copy inside the calls).
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit line, and as its last line ``{"ok": true, "device": {...}}``. Scratch
@@ -96,14 +112,18 @@ def smi() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, calls: int = 1) -> float:
     """Device time of one call of ``fn``: captured once in a CUDA graph and
-    replayed, so host launch overhead is not in the number."""
+    replayed, so host launch overhead is not in the number. A one-kernel
+    graph takes 5-7 us a replay on an H100 whatever the kernel (a 16-float
+    fill measured so); ``calls`` > 1 captures that many calls in the graph,
+    so the number comes nearer the kernel's own time."""
     fn()                                         # warm-up, outside capture
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     graph.replay()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -111,7 +131,7 @@ def device_ms(fn, iters: int = 20) -> float:
         graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters / calls
 
 
 def ptxas_summary(stem: str, kernels) -> list:
@@ -260,29 +280,120 @@ def _gat_ops(n: int, d: int, do: int) -> float:
     return B * (n * n * (d + 2 * d * do + 3 * do) + 3 * n * n + 2 * n * n * d)
 
 
+def _gat_inputs(g, dev, b, n, d, do, x_dtype=torch.float32):
+    x = torch.randn((b, n, d), generator=g, device=dev).to(x_dtype)
+    w = torch.randn((d, do), generator=g, device=dev) * d ** -0.5
+    bias = torch.randn((do,), generator=g, device=dev) * 0.1
+    vecs = [torch.randn((do, 1), generator=g, device=dev) * do ** -0.5
+            for _ in range(3)]
+    return x, w, bias, vecs
+
+
+def _gat_fns(gat, htrg: bool, x, w, bias, vecs, n1, temp):
+    """(kernel call, plain call) of one GAT function on these inputs."""
+    if htrg:
+        return (lambda: gat.fused_htrg_gat_aggregate(x, w, bias, *vecs, n1, temp),
+                lambda: gat.fused_htrg_gat_aggregate_reference(
+                    x, w, bias, *vecs, n1, temp))
+    return (lambda: gat.fused_gat_aggregate(x, w, bias, vecs[0], temp),
+            lambda: gat.fused_gat_aggregate_reference(x, w, bias, vecs[0], temp))
+
+
+def gat_edges(dev, g) -> None:
+    """Both GAT functions against their plain versions at the edges of the
+    tiled body and across the shape rule (ops/gat.py::tiled), and on the
+    model's layouts: x a bf16 (or float32) transposed view, the kernel
+    ``att_proj.weight.t()``, bit for bit against contiguous float32 copies.
+    Then the tiled body's tanh against tanhf."""
+    from rtdsd_tpu_torch.ops import build, gat
+
+    big = gat.max_nodes(64, 64, "tiled")
+    homog = [(2, 1, 64, 64), (2, 4, 64, 64), (2, 5, 64, 64), (2, 8, 64, 64),
+             (2, 9, 64, 64), (2, big, 64, 64), (2, big + 1, 64, 64),
+             (2, 50, 16, 64), (2, 50, 32, 32), (2, 50, 128, 64),
+             (2, 30, 128, 256), (3, 13, 16, 8), (2, 50, 64, 33),
+             (2, gat.max_nodes(64, 33, "rows"), 64, 33), (1, 66, 64, 64),
+             (1, 42, 64, 64)]
+    typed = [(2, 26, 32, 32, n1) for n1 in (0, 4, 8, 26)] + [
+        (1, 54, 64, 32, 33), (2, 19, 16, 8, 9), (2, 54, 64, 33, 33)]
+    cases = [(False, c, None) for c in homog] + [(True, c[:4], c[4]) for c in typed]
+    worst = 0.0
+    for htrg, (b, n, d, do), n1 in cases:
+        x, w, bias, vecs = _gat_inputs(g, dev, b, n, d, do)
+        run, ref = _gat_fns(gat, htrg, x, w, bias, vecs, n1,
+                            100.0 if htrg else 2.0)
+        got, want = run(), ref()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        worst = max(worst, err)
+        what = (f"{'htrg' if htrg else 'gat'} (B={b}, N={n}, D={d}, Do={do}"
+                f"{'' if n1 is None else f', n1={n1}'}, "
+                f"{'tiled' if gat.tiled(n, d, do) else 'rows'} body)")
+        try:
+            torch.testing.assert_close(got, want, rtol=GAT_TOL[0], atol=GAT_TOL[1])
+        except AssertionError:
+            log(f"GAT {what}: max|d| {err:.3g} FAILS (rtol {GAT_TOL[0]}, "
+                f"atol {GAT_TOL[1]})")
+            raise
+    log(f"GAT edges: {len(cases)} shapes, max|d| {worst:.3g} (rtol "
+        f"{GAT_TOL[0]}, atol {GAT_TOL[1]}); largest N tiled {big}, rows "
+        f"{gat.max_nodes(64, 33, 'rows')} (D=64, Do=33)")
+    for htrg in (False, True):
+        b, n, d, do, n1 = (B, 54, 64, 32, 33) if htrg else (B, 66, 64, 64, None)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, _, bias, vecs = _gat_inputs(g, dev, b, n, d, do)
+            x = x.transpose(1, 2).contiguous().transpose(1, 2).to(dtype)
+            w = (torch.randn((do, d), generator=g, device=dev) * d ** -0.5).t()
+            run, ref = _gat_fns(gat, htrg, x, w, bias, vecs, n1, 2.0)
+            copies = _gat_fns(gat, htrg, x.float().contiguous(), w.contiguous(),
+                              bias, vecs, n1, 2.0)[0]
+            got, same, want = run(), copies(), ref()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            log(f"GAT {'htrg' if htrg else 'gat'} on the model's layouts (x a "
+                f"{str(dtype)[6:]} view, W = weight.t()): equal to contiguous "
+                f"f32 copies: {torch.equal(got, same)}; max|d| {err:.3g}")
+            if not torch.equal(got, same):
+                raise RuntimeError("GAT kernel differs on the model's layouts")
+            torch.testing.assert_close(got, want, rtol=GAT_TOL[0], atol=GAT_TOL[1])
+    x = torch.linspace(-12, 12, 1 << 22, device=dev)
+    fast, ref = torch.empty_like(x), torch.empty_like(x)
+    lib = build.library("gat", gat._SIGNATURES)
+    build.check(lib.gat_tanh_check(x.data_ptr(), fast.data_ptr(), ref.data_ptr(),
+                                   x.numel(), torch.cuda.current_stream().cuda_stream),
+                "gat_tanh_check")
+    d_f = (fast - ref).abs().max().item()
+    d_64 = (fast.double() - x.double().tanh()).abs().max().item()
+    d_ref = (ref.double() - x.double().tanh()).abs().max().item()
+    log(f"GAT tanh (ex2.approx) on [-12, 12]: max|fast - tanhf| {d_f:.3g}, "
+        f"max|fast - tanh (f64)| {d_64:.3g}, max|tanhf - tanh (f64)| {d_ref:.3g}")
+    if d_f > 1e-6:
+        raise RuntimeError("the GAT kernel's tanh is off tanhf by more than 1e-6")
+
+
+def _gat_ops(n: int, d: int, do: int) -> float:
+    """Operations of one aggregation over B graphs of n nodes: per (i, j)
+    the pair product (d), projection (2 d do), bias + tanh + edge dot
+    (3 do), then softmax (3 n per row) and the weighted sum (2 n d)."""
+    return B * (n * n * (d + 2 * d * do + 3 * do) + 3 * n * n + 2 * n * n * d)
+
+
 def check_gat(dev, htrg: bool) -> dict:
-    from rtdsd_tpu_torch.ops import gat
+    from rtdsd_tpu_torch.ops import build, gat
 
     g = torch.Generator(device=dev).manual_seed(1)
+    if not htrg:
+        gat_edges(dev, g)
     # main-path shapes: GAT_layer_S/T, or HtrgGAT ST11/ST21 and ST12/ST22
     shapes = ([(54, 64, 32, 33, 100.0), (26, 32, 32, 16, 100.0)] if htrg
               else [(42, 64, 64, None, 2.0), (66, 64, 64, None, 2.0)])
     name = "fused_htrg_gat_aggregate" if htrg else "fused_gat_aggregate"
     rec = None
     for n, d, do, n1, temp in shapes:
-        x = torch.randn((B, n, d), generator=g, device=dev)
-        w = torch.randn((d, do), generator=g, device=dev) * d ** -0.5
-        bias = torch.randn((do,), generator=g, device=dev) * 0.1
-        vecs = [torch.randn((do, 1), generator=g, device=dev) * do ** -0.5
-                for _ in range(3 if htrg else 1)]
-        if htrg:
-            run = lambda: gat.fused_htrg_gat_aggregate(x, w, bias, *vecs, n1, temp)
-            ref = lambda: gat.fused_htrg_gat_aggregate_reference(
-                x, w, bias, *vecs, n1, temp)
-        else:
-            run = lambda: gat.fused_gat_aggregate(x, w, bias, vecs[0], temp)
-            ref = lambda: gat.fused_gat_aggregate_reference(x, w, bias,
-                                                            vecs[0], temp)
+        x, w, bias, vecs = _gat_inputs(g, dev, B, n, d, do)
+        if not htrg:
+            vecs = vecs[:1]
+        run, ref = _gat_fns(gat, htrg, x, w, bias, vecs, n1, temp)
         got, want = run(), ref()
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
@@ -290,13 +401,33 @@ def check_gat(dev, htrg: bool) -> dict:
             f"{'' if n1 is None else f', n1={n1}'}): max|d| {err:.3g} "
             f"(rtol {GAT_TOL[0]}, atol {GAT_TOL[1]})")
         torch.testing.assert_close(got, want, rtol=GAT_TOL[0], atol=GAT_TOL[1])
-        ms, plain = device_ms(run), device_ms(ref)
+        # the rows body, the one-pair-a-thread body of earlier versions, on
+        # the same inputs: the yardstick of the tiled one
+        out, edges = torch.empty_like(x), (vecs * 3)[:3]
+        lib = build.library("gat", gat._SIGNATURES)
+        rows = lambda: build.check(lib.gat_rows_aggregate_f32(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            *(e.data_ptr() for e in edges), out.data_ptr(), B, n, d, do,
+            n if n1 is None else n1, temp,
+            torch.cuda.current_stream().cuda_stream), "gat_rows_aggregate_f32")
+        rows()
+        torch.testing.assert_close(out, want, rtol=GAT_TOL[0], atol=GAT_TOL[1])
+        # in turns: rows, tiled, tiled, rows; one call a graph, then ten
+        t = {k: [] for k in ("rows", "tiled", "rows10", "tiled10")}
+        for k in ("rows", "tiled", "tiled", "rows"):
+            fn = rows if k == "rows" else run
+            t[k].append(device_ms(fn))
+            t[k + "10"].append(device_ms(fn, calls=10))
+        ms, plain = t["tiled"][0], device_ms(ref)
         nbytes = 4 * (2 * B * n * d + d * do + (1 + len(vecs)) * do)
         bnd, by = bound_ms(nbytes, _gat_ops(n, d, do), "f32")
-        log(f"  kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
-            f"({by})")
+        log(f"  kernel {ms:.4f} / {t['tiled'][1]:.4f} ms, rows body "
+            f"{t['rows'][0]:.4f} / {t['rows'][1]:.4f} ms; ten calls a graph: "
+            f"kernel {t['tiled10'][0]:.4f} / {t['tiled10'][1]:.4f}, rows body "
+            f"{t['rows10'][0]:.4f} / {t['rows10'][1]:.4f} ms a call; plain "
+            f"{plain:.4f} ms, bound {bnd:.4f} ms ({by})")
         this = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                    bound_by=by, library_ms=None,
+                    bound_by=by, library_ms=None, rows_body_ms=t["rows"][0],
                     shape=f"x ({B},{n},{d}) W ({d},{do}) f32")
         if rec is None or this["ms"] > rec["ms"]:
             rec = this                       # report the heavier shape
@@ -519,6 +650,97 @@ def read_counters() -> dict:
     return {fn.__name__: fn.launches for fn in counters()}
 
 
+def loader_phase() -> None:
+    """The eval loader on the main path's track: the native decode path
+    (the CLI's) and the Python one give identical batches (first-N crops,
+    16 kHz WAV); host ms per batch of 16 four-second clips for each, median
+    of three passes over the track (files in the page cache)."""
+    from rtdsd_tpu_torch.config import load_yaml_config
+    from rtdsd_tpu_torch.data.dataset import ASVspoof2021LA_eval
+    from rtdsd_tpu_torch.data.loader import EvalLoader
+    from rtdsd_tpu_torch.native import flac
+
+    t0 = time.perf_counter()
+    flac.load()
+    log(f"native decoder: {os.path.basename(flac.library_path())} ready in "
+        f"{time.perf_counter() - t0:.2f} s (g++ at first use)")
+    ds = ASVspoof2021LA_eval(*load_yaml_config(write_config(WORK, "bfloat16")))
+    batches, ms = {}, {}
+    for native in (True, False):
+        loader = EvalLoader(ds, B, num_workers=4, use_native=native)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            batches[native] = list(loader)
+            times.append((time.perf_counter() - t0) * 1e3 / len(batches[native]))
+        ms[native] = statistics.median(times)
+    nat, py = batches[True], batches[False]
+    same = len(nat) == len(py) and all(
+        a.utt_ids == b.utt_ids and a.valid == b.valid
+        and np.array_equal(a.labels, b.labels) and np.array_equal(a.waves, b.waves)
+        for a, b in zip(nat, py))
+    log(f"eval loader, LA21 track ({N_CLIPS} clips, batch {B}, first-N crops, "
+        f"16 kHz WAV): native == Python batches: {same}; host decode per "
+        f"batch of {B} four-second clips, median of 3 passes: native "
+        f"(4 threads) {ms[True]:.2f} ms, Python {ms[False]:.2f} ms "
+        f"({os.cpu_count()} host cores)")
+    if not same:
+        raise RuntimeError("native and Python eval loaders give other batches")
+
+
+def gat_call_kernels(model, waves) -> None:
+    """The kernels around the GAT launches of one forward: each GAT call is
+    a ``record_function`` range in a profiled forward, and every kernel an
+    op inside a range launches (a cast, a copy) is counted; the GAT kernels
+    themselves (ctypes launches, under no op) by name."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from rtdsd_tpu_torch.models import aasist
+
+    saved = {n: getattr(aasist, n) for n in ("fused_gat_aggregate",
+                                             "fused_htrg_gat_aggregate")}
+
+    def traced(fn):
+        def call(*args, **kwargs):
+            with record_function("gat_call"):
+                return fn(*args, **kwargs)
+        return call
+
+    try:
+        for n, fn in saved.items():
+            setattr(aasist, n, traced(fn))
+        with torch.inference_mode():
+            model(waves)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                model(waves)
+                torch.cuda.synchronize()
+    finally:
+        for n, fn in saved.items():
+            setattr(aasist, n, fn)
+
+    def kernels(e):
+        return [k.name for k in e.kernels] + [k for c in e.cpu_children
+                                             for k in kernels(c)]
+
+    # the profiler mirrors each range on the device's timeline: count the
+    # host side only
+    calls = [e for e in prof.events()
+             if e.name == "gat_call" and e.device_type == DeviceType.CPU]
+    around = Counter(k for e in calls for k in kernels(e))
+    gat_kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and "gat_" in e.key
+                      and e.key != "gat_call")
+    log(f"one bf16 batch of {waves.shape[0]}: {len(calls)} GAT calls, "
+        f"{gat_kernels} GAT kernels, {sum(around.values())} other kernels "
+        f"launched inside the calls (casts, copies)"
+        + "".join(f"; {k[:70]} x{c}" for k, c in sorted(around.items())))
+
+
 def main_path(ckpt: str, mode: str = "") -> dict:
     """Score the track through the CLI in bf16, plain (``mode`` "") or with
     ``--w8`` / ``--w8a8``; check the scores and the launch counts."""
@@ -635,7 +857,7 @@ def steady_ms_per_clip(model, waves) -> float:
 
 
 KERNEL_CLASSES = (("mha_small_t kernel", ("mha_small_t",)),
-                  ("GAT kernels", ("gat_kernel",)),
+                  ("GAT kernels", ("gat_tiled_kernel", "gat_rows_kernel")),
                   ("GEMM", ("gemm", "nvjet", "xmma", "cublas")),
                   ("convolution", ("conv", "fprop", "cudnn")),
                   ("norm/softmax/reduce", ("norm", "softmax", "reduce")),
@@ -739,6 +961,11 @@ def main() -> int:
                                                "tiled_kernelILi64E",
                                                "rows_kernelIfLi64E")):
         log(line)
+    for line in ptxas_summary("gat", ("gat_tiled_kernelILi64ELi1E",
+                                      "gat_tiled_kernelILi64ELi2E",
+                                      "gat_tiled_kernelILi32ELi1E",
+                                      "gat_rows_kernelILi64E")):
+        log(line)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -772,6 +999,7 @@ def main() -> int:
     log(f"full-width XLSR_AASIST, random weights (seed 0): "
         f"{sum(v.numel() for k, v in sd.items() if 'running' not in k) / 1e6:.1f}"
         f" M values, saved in {time.perf_counter() - t0:.1f} s")
+    loader_phase()
 
     run = main_path(ckpt)
     int8_runs = {mode: main_path(ckpt, mode) for mode in ("w8", "w8a8")}
@@ -815,6 +1043,7 @@ def main() -> int:
         raise RuntimeError("CLI scores differ from the same model's forward")
 
     profile_forward(bf16, waves)
+    gat_call_kernels(bf16, waves)
     models = {"bf16": bf16,
               **{mode: build_model(sd, torch.bfloat16, dev, mode=mode)
                  for mode in ("w8", "w8a8")}}

@@ -75,11 +75,14 @@ def load_eval_model(sys_config: SysConfig, exp_config: ExpConfig, ckpt: str,
 
 
 def score_dataset(dataset, spec: ModelSpec, batch_size: int,
-                  device: torch.device, on_decode_error: str = "raise"):
+                  device: torch.device, on_decode_error: str = "raise",
+                  num_workers: int = 4):
     """Score every trial in dataset order -> (utt_ids, scores). Batches are
-    dispatched without waiting; scores are read back once at the end."""
+    decoded as the JAX CLI decodes them (native, ``num_workers`` threads),
+    dispatched without waiting, and read back once at the end."""
     step = make_score_step(spec.module)
-    loader = EvalLoader(dataset, batch_size, on_decode_error=on_decode_error)
+    loader = EvalLoader(dataset, batch_size, num_workers=num_workers,
+                        use_native=True, on_decode_error=on_decode_error)
     names, outs = [], []
     for b in loader:
         waves = torch.from_numpy(b.waves).to(device, non_blocking=True)

@@ -5,8 +5,9 @@ file ``.flac`` whatever it holds):
 
 - WAV: a numpy RIFF reader (PCM 8/16/24/32 and float32/64), int samples
   scaled as torchaudio does (int16 / 32768 etc.);
-- FLAC: ``soundfile`` when it is installed, else a clear error (the JAX
-  package's native FLAC decoder is not ported yet).
+- FLAC: the port's native decoder (:mod:`rtdsd_tpu_torch.native.flac`,
+  built with g++ at first use), as the JAX package decodes FLAC when its
+  native library is built.
 
 Decoders return (float32 (C, T) waveform, sample rate); :func:`load_audio`
 keeps channel 0.
@@ -66,14 +67,9 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
 
 
 def read_flac(path: str) -> Tuple[np.ndarray, int]:
-    try:
-        import soundfile
-    except ImportError:
-        raise RuntimeError(
-            f"{path}: FLAC needs the soundfile package, which is not "
-            "installed (the port has no FLAC decoder of its own yet)") from None
-    x, sr = soundfile.read(path, dtype="float32", always_2d=True)
-    return x.T.copy(), sr
+    from rtdsd_tpu_torch.native import flac
+
+    return flac.decode(path)
 
 
 def load_audio(path: str) -> Tuple[np.ndarray, int]:

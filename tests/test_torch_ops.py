@@ -156,6 +156,19 @@ def test_htrg_plain_matches_jax(jx, n1):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("n,d,do,want", [(66, 64, 64, True), (54, 64, 32, True),
+                                         (26, 32, 32, True), (50, 64, 33, False),
+                                         (50, 64, 512, False), (50, 128, 256, True),
+                                         (704, 64, 64, True), (705, 64, 64, False)])
+def test_gat_tiled_rule(n, d, do, want):
+    # the tiled body takes Do in {8, ..., 256} where its shared memory fits;
+    # the rows body takes the rest up to its own limit, so the set of
+    # shapes the wrapper accepts did not narrow
+    assert gat.tiled(n, d, do) == want
+    assert gat.max_nodes(64, 64, "tiled") == 704
+    assert gat.max_nodes(64, 33, "tiled") == 0
+
+
 def test_kernel_sources_and_build_dir():
     assert build.sources() == ["convstack", "gat", "mha_small_t", "quant"]
     path = build.library_path("gat")
@@ -264,32 +277,91 @@ def test_mha_bf16_kernel_refuses_unaligned_rows(cuda):
         attention.mha_small_t(big, big, big)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,n,d,do", [(16, 42, 64, 64), (16, 66, 64, 64),
-                                      (3, 13, 16, 8)])
-def test_gat_kernel_matches_plain(cuda, b, n, d, do):
-    x, w, bias, (a, _, _) = _gat_inputs(5, b, n, d, do)
+# (b, n, d, do): the main path's shapes, then the edges of the tiled body
+# (N at 1, at one 4-key group and one past it, at a query-tile boundary and
+# one past it, the largest N it takes and one past, which the rows body
+# takes), D 16/32/128, Do 8 and 256 (one and 32 lanes a key group), an odd
+# Do (the rows body, up to its largest N) and batch 1
+_GAT_CASES = [(16, 42, 64, 64), (16, 66, 64, 64), (3, 13, 16, 8),
+              (2, 1, 64, 64), (2, 4, 64, 64), (2, 5, 64, 64), (2, 8, 64, 64),
+              (2, 9, 64, 64), (2, gat.max_nodes(64, 64, "tiled"), 64, 64),
+              (2, gat.max_nodes(64, 64, "tiled") + 1, 64, 64),
+              (2, 50, 16, 64), (2, 50, 32, 32), (2, 50, 128, 64),
+              (2, 30, 128, 256), (2, 50, 64, 33),
+              (2, gat.max_nodes(64, 33, "rows"), 64, 33), (1, 66, 64, 64),
+              (1, 42, 64, 64)]
+# (b, n, d, do, n1): the main path's shapes, n1 at 0, at a key-group and a
+# query-tile boundary and at N, batch 1
+_HTRG_CASES = [(16, 54, 64, 32, 33), (16, 26, 32, 32, 16), (2, 19, 16, 8, 9),
+               (2, 26, 32, 32, 0), (2, 26, 32, 32, 4), (2, 26, 32, 32, 8),
+               (2, 26, 32, 32, 26), (1, 54, 64, 32, 33)]
+
+
+def _gat_case(cuda, seed, b, n, d, do):
+    x, w, bias, vecs = _gat_inputs(seed, b, n, d, do)
     to = lambda t: torch.from_numpy(t).to(cuda)
-    args = [to(x), to(w), to(bias), to(a)]
-    got = gat.fused_gat_aggregate(*args, temperature=2.0)
+    return to(x), to(w), to(bias), [to(t) for t in vecs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,d,do", _GAT_CASES)
+def test_gat_kernel_matches_plain(cuda, b, n, d, do):
+    x, w, bias, (a, _, _) = _gat_case(cuda, 5, b, n, d, do)
+    before = gat.fused_gat_aggregate.launches
+    got = gat.fused_gat_aggregate(x, w, bias, a, temperature=2.0)
     torch.cuda.synchronize()
-    want = gat.fused_gat_aggregate_reference(*args, temperature=2.0)
+    assert gat.fused_gat_aggregate.launches == before + 1
+    want = gat.fused_gat_aggregate_reference(x, w, bias, a, temperature=2.0)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,n,d,do,n1", [(16, 54, 64, 32, 33),
-                                         (16, 26, 32, 32, 16),
-                                         (2, 19, 16, 8, 9)])
+@pytest.mark.parametrize("b,n,d,do,n1", _HTRG_CASES)
 def test_htrg_kernel_matches_plain(cuda, b, n, d, do, n1):
-    x, w, bias, vecs = _gat_inputs(6, b, n, d, do)
-    to = lambda t: torch.from_numpy(t).to(cuda)
-    args = [to(x), to(w), to(bias), *(to(t) for t in vecs)]
-    got = gat.fused_htrg_gat_aggregate(*args, n1=n1, temperature=100.0)
+    x, w, bias, vecs = _gat_case(cuda, 6, b, n, d, do)
+    got = gat.fused_htrg_gat_aggregate(x, w, bias, *vecs, n1=n1,
+                                       temperature=100.0)
     torch.cuda.synchronize()
-    want = gat.fused_htrg_gat_aggregate_reference(*args, n1=n1,
+    want = gat.fused_htrg_gat_aggregate_reference(x, w, bias, *vecs, n1=n1,
                                                   temperature=100.0)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("htrg", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_gat_kernel_takes_model_layouts(cuda, htrg, dtype):
+    """As the model calls it: x a transposed view in the compute dtype, the
+    kernel ``att_proj.weight.t()``. The tiled body reads both as they are
+    and gives, bit for bit, what it gives on contiguous float32 copies."""
+    b, n, d, do, n1 = (16, 54, 64, 32, 33) if htrg else (16, 66, 64, 64, 66)
+    x, _, bias, vecs = _gat_case(cuda, 7, b, n, d, do)
+    x = x.transpose(1, 2).contiguous().transpose(1, 2).to(dtype)   # view
+    weight = torch.randn((do, d), device=cuda) * 0.3     # nn.Linear layout
+    w = weight.t()
+    assert not x.is_contiguous() and not w.is_contiguous()
+    if htrg:
+        run = lambda *a: gat.fused_htrg_gat_aggregate(*a, bias, *vecs, n1, 100.0)
+        ref = gat.fused_htrg_gat_aggregate_reference(x, w, bias, *vecs, n1, 100.0)
+    else:
+        run = lambda *a: gat.fused_gat_aggregate(*a, bias, vecs[0], 2.0)
+        ref = gat.fused_gat_aggregate_reference(x, w, bias, vecs[0], 2.0)
+    got = run(x, w)
+    assert torch.equal(got, run(x.float().contiguous(), w.contiguous()))
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gat_tanh_against_tanhf(cuda):
+    """The tiled body's ex2.approx tanh against tanhf on the card."""
+    x = torch.linspace(-12, 12, 1 << 20, device=cuda)
+    fast, ref = torch.empty_like(x), torch.empty_like(x)
+    lib = build.library("gat", gat._SIGNATURES)
+    rc = lib.gat_tanh_check(x.data_ptr(), fast.data_ptr(), ref.data_ptr(),
+                            x.numel(), torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "gat_tanh_check")
+    assert (fast - ref).abs().max().item() < 1e-6
+    assert (fast - x.double().tanh()).abs().max().item() < 1e-6
 
 
 @pytest.mark.gpu
