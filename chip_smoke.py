@@ -26,8 +26,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    turns with the rows body (the one-pair-a-thread body of earlier
    versions), one call a CUDA graph and ten;
    ``quantize_int8`` at the flagship's three matrix shapes in both rounding
-   modes (bit for bit, plus statistics of the stochastic mode), ``ln_gelu``
-   and ``conv_ln_gelu_grouped`` at the six front-end layer geometries;
+   modes and both layouts it reads in place (row-major and ``weight.t()``;
+   bit for bit, plus statistics of the stochastic mode; one and ten calls a
+   graph), the whole flagship state dict through ``quantize_state_dict``
+   (144 pairs bit for bit; 144 quantize kernels and no copy, by the
+   profiler), ``ln_gelu``, and ``conv_ln_gelu_grouped`` at the six
+   front-end layer geometries, in bf16 on each body in turns (the
+   tensor-core body and the FFMA body) beside the model's unfused layer,
+   with ptxas's registers and spills of the quantize and conv kernels;
 4. the eval loader on the main path's track: the native (C++, built with
    g++ at first use, the CLI's) and the Python decode paths of
    ``EvalLoader`` give identical batches of
@@ -434,48 +440,100 @@ def check_gat(dev, htrg: bool) -> dict:
     return rec
 
 
-def check_quant(dev) -> dict:
-    """quantize_int8 at the flagship's matrix shapes: kernel and plain
-    version bit for bit in both rounding modes; the stochastic mode's error
-    below one scale step and unbiased per column."""
+def check_quant(dev, sd: dict) -> dict:
+    """quantize_int8 at the flagship's matrix shapes, in the two layouts
+    the kernel reads in place (row-major (in, out), the JAX package's, and
+    the transposed view ``weight.t()`` that the model's path passes):
+    kernel and plain version bit for bit in both rounding modes; the
+    stochastic mode's error below one scale step and unbiased per column;
+    times one and ten calls a CUDA graph. Then the whole flagship state dict
+    through quantize_state_dict (quant_state_dict). The reported record is
+    the slowest shape and layout one call a graph (``ms``), with its time
+    ten calls a graph beside it (``ms_ten_calls``)."""
     from rtdsd_tpu_torch.ops.quant import quantize_int8, quantize_int8_reference
 
     g = torch.Generator(device=dev).manual_seed(2)
     rec = None
     for n, (r, c) in enumerate(QUANT_SHAPES):
-        x = torch.randn((r, c), generator=g, device=dev) * r ** -0.5
         seed = 7919 * (n + 1)
-        for stochastic in (False, True):
-            got = quantize_int8(x, seed, stochastic)
-            want = quantize_int8_reference(x, seed, stochastic)
-            torch.cuda.synchronize()
-            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-                raise RuntimeError(f"quantize_int8 ({r}, {c}) stochastic="
-                                   f"{stochastic}: kernel != plain version")
-        vals, scales = got                       # the stochastic mode
-        scaled = x.double() / scales.double()
-        err = vals.double() - scaled
-        var = (scaled - scaled.floor()) * (scaled.floor() + 1 - scaled)
-        z_col = (err.mean(0) / (var.sum(0).sqrt() / r).clamp_min(1e-30)).abs()
-        z_all = (err.mean() / (var.sum().sqrt() / err.numel())).abs().item()
-        worst = err.abs().max().item()
-        log(f"quantize_int8 ({r}, {c}): kernel == plain in both modes; "
-            f"stochastic max|q - x/scale| {worst:.6f} (< 1), per-column "
-            f"|mean err| max {z_col.max().item():.2f} SE, whole matrix "
-            f"{z_all:.2f} SE (limit {QUANT_Z})")
-        if worst >= 1.0 or z_col.max().item() > QUANT_Z or z_all > QUANT_Z:
-            raise RuntimeError("stochastic rounding out of its bounds")
-        ms = device_ms(lambda: quantize_int8(x, seed))
-        plain = device_ms(lambda: quantize_int8_reference(x, seed, True))
-        bnd, by = bound_ms(4 * r * c + r * c + 4 * c, 0, "f32")
-        log(f"  kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
-            f"({by})")
-        this = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd,
-                    bound_by=by, library_ms=None,
-                    shape=f"x ({r},{c}) f32, stochastic")
-        if rec is None or this["ms"] > rec["ms"]:
-            rec = this
+        for layout in ("row-major", "weight.t()"):
+            trans = layout == "weight.t()"
+            x = torch.randn((c, r) if trans else (r, c), generator=g,
+                            device=dev) * r ** -0.5
+            x = x.t() if trans else x
+            for stochastic in (False, True):
+                got = quantize_int8(x, seed, stochastic)
+                want = quantize_int8_reference(x, seed, stochastic)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    raise RuntimeError(f"quantize_int8 ({r}, {c}) {layout} "
+                                       f"stochastic={stochastic}: kernel != "
+                                       f"plain version")
+            vals, scales = got                       # the stochastic mode
+            scaled = x.double() / scales.double()
+            err = vals.double() - scaled
+            var = (scaled - scaled.floor()) * (scaled.floor() + 1 - scaled)
+            z_col = (err.mean(0) / (var.sum(0).sqrt() / r).clamp_min(1e-30)).abs()
+            z_all = (err.mean() / (var.sum().sqrt() / err.numel())).abs().item()
+            worst = err.abs().max().item()
+            log(f"quantize_int8 ({r}, {c}) {layout}: kernel == plain in both "
+                f"modes; stochastic max|q - x/scale| {worst:.6f} (< 1), "
+                f"per-column |mean err| max {z_col.max().item():.2f} SE, whole "
+                f"matrix {z_all:.2f} SE (limit {QUANT_Z})")
+            if worst >= 1.0 or z_col.max().item() > QUANT_Z or z_all > QUANT_Z:
+                raise RuntimeError("stochastic rounding out of its bounds")
+            ms = device_ms(lambda: quantize_int8(x, seed))
+            ms10 = device_ms(lambda: quantize_int8(x, seed), calls=10)
+            plain = device_ms(lambda: quantize_int8_reference(x, seed, True))
+            bnd, by = bound_ms(4 * r * c + r * c + 4 * c, 0, "f32")
+            log(f"  kernel {ms:.4f} ms one call a graph, {ms10:.4f} ms ten "
+                f"calls a graph; plain {plain:.4f} ms, bound {bnd:.4f} ms "
+                f"({by})")
+            if rec is None or ms > rec["ms"]:
+                rec = dict(max_abs_err=0.0, ms=ms, ms_ten_calls=ms10,
+                           plain_ms=plain, bound_ms=bnd, bound_by=by,
+                           library_ms=None,
+                           shape=f"x ({r},{c}) f32 {layout}, stochastic")
+    quant_state_dict(sd, dev)
     return rec
+
+
+def quant_state_dict(sd: dict, dev) -> None:
+    """The flagship's 144 transformer matrices through quantize_state_dict
+    on the card, as a ``--w8`` load runs it: every (vals, scales) pair equal
+    bit for bit to the plain version on the same weight and seed, and, by
+    the profiler, 144 quantize kernels and no other kernel (no copy)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtdsd_tpu_torch.models.convert import load_reference_state_dict
+    from rtdsd_tpu_torch.models.quantize import matmul_keys, quantize_state_dict
+    from rtdsd_tpu_torch.ops.quant import quantize_int8_reference
+
+    ref = {k: v.to(dev) for k, v in load_reference_state_dict(sd).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = quantize_state_dict(ref)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    n_quant = sum(c for k, c in kernels.items() if "quant_kernel" in k)
+    others = {k: c for k, c in kernels.items() if "quant_kernel" not in k}
+    keys = matmul_keys(ref)
+    same = 0
+    for n, key in enumerate(keys, start=1):
+        vals, scales = quantize_int8_reference(ref[key].t(), seed=7919 * n,
+                                               stochastic=True)
+        base = key[:-len("weight")]
+        same += (torch.equal(out[base + "vals"], vals)
+                 and torch.equal(out[base + "scales"], scales))
+    log(f"quantize_state_dict, flagship: {same} of {len(keys)} (vals, scales) "
+        f"pairs equal to the plain version bit for bit; device kernels in "
+        f"the call: {n_quant} quantize, others {others or 'none'}")
+    if len(keys) != 144 or same != 144 or n_quant != 144 or others:
+        raise RuntimeError("quantize_state_dict on the card: wrong matrices "
+                           "or kernels besides the 144 quantize launches")
 
 
 def check_ln_gelu(dev) -> dict:
@@ -510,15 +568,39 @@ def check_ln_gelu(dev) -> dict:
     return rec["bf16"]
 
 
+def unfused_layer(x, w, bias, gamma, beta, s: int):
+    """One front-end layer as ConvFeatureExtractor runs it in bf16, on its
+    (B, Cin, T) activations: F.conv1d with the bias, LayerNorm in float32,
+    rational-erf GELU (three or more PyTorch calls; information only)."""
+    import torch.nn.functional as F
+
+    from rtdsd_tpu_torch.ops.fastgelu import gelu
+
+    x_cf = x.transpose(1, 2).contiguous()
+    wt, bt = w.permute(2, 1, 0).to(x.dtype).contiguous(), bias.to(x.dtype)
+
+    def run():
+        y = F.conv1d(x_cf, wt, bt, stride=s).transpose(1, 2)
+        y = F.layer_norm(y.float(), (wt.shape[0],), gamma, beta, 1e-5)
+        return gelu(y.to(x.dtype), fast=True)
+    return run
+
+
 def check_conv(dev) -> dict:
-    """conv_ln_gelu_grouped at each front-end layer geometry, batch 16;
-    the reported record is the heaviest layer (k=3, 12799 -> 6399) in bf16."""
-    from rtdsd_tpu_torch.ops.convstack import (conv_ln_gelu_grouped,
+    """conv_ln_gelu_grouped at each front-end layer geometry, batch 16:
+    float32 on the FFMA body; bf16 on both bodies (the tensor-core body,
+    "mma", the rule's, and the FFMA body), each
+    against the plain version within CONV_TOL and timed in turns, one call
+    a CUDA graph (layers 5-6 also ten), with the model's unfused bf16 layer
+    timed beside them for information. The reported record is layer 1 on
+    the rule's body."""
+    from rtdsd_tpu_torch.ops.convstack import (conv_body, conv_ln_gelu_grouped,
                                                conv_ln_gelu_grouped_reference)
 
     g = torch.Generator(device=dev).manual_seed(4)
-    recs, total = [], 0.0
-    for cin, cout, k, s, t in CONV_LAYERS:
+    bodies = ("ffma", "mma")
+    recs, total = [], {b: 0.0 for b in bodies + ("unfused",)}
+    for layer, (cin, cout, k, s, t) in enumerate(CONV_LAYERS, start=1):
         w = torch.randn((k, cin, cout), generator=g, device=dev) * (k * cin) ** -0.5
         bias = 0.1 * torch.randn(cout, generator=g, device=dev)
         gamma = 1 + 0.1 * torch.randn(cout, generator=g, device=dev)
@@ -527,34 +609,63 @@ def check_conv(dev) -> dict:
         f_out = (t - k) // s + 1
         for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             x = x32.to(dtype)
-            run = lambda: conv_ln_gelu_grouped(x, w, bias, gamma, beta, k=k, s=s)
+            runs = {b: (lambda b=b: conv_ln_gelu_grouped(
+                x, w, bias, gamma, beta, k=k, s=s, body=b))
+                for b in (bodies if kind == "bf16" else ("ffma",))}
             ref = lambda: conv_ln_gelu_grouped_reference(x, w, bias, gamma,
                                                          beta, k=k, s=s)
-            got, want = run(), ref()
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
+            want = ref().float()
             rtol, atol = CONV_TOL[kind]
-            log(f"conv_ln_gelu_grouped {kind} (B={B}, T={t}->{f_out}, "
-                f"k={k}, s={s}, {cin}->{cout}): max|d| {err:.3g} (rtol "
-                f"{rtol}, atol {atol})")
-            torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                                       atol=atol)
+            errs = {}
+            for b, run in runs.items():
+                got = run().float()
+                torch.cuda.synchronize()
+                errs[b] = (got - want).abs().max().item()
+                try:
+                    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+                except AssertionError:
+                    log(f"conv_ln_gelu_grouped {kind} layer {layer}, {b} body: "
+                        f"max|d| {errs[b]:.3g} FAILS (rtol {rtol}, atol {atol})")
+                    raise
+            log(f"conv_ln_gelu_grouped {kind} layer {layer} (B={B}, "
+                f"T={t}->{f_out}, k={k}, s={s}, {cin}->{cout}): max|d| "
+                + ", ".join(f"{b} {e:.3g}" for b, e in errs.items())
+                + f" (rtol {rtol}, atol {atol})")
             if kind == "f32":
                 continue
-            ms, plain = device_ms(run, iters=10), device_ms(ref, iters=10)
+            # in turns: every body, then again in reverse order
+            t1 = {b: [] for b in bodies}
+            t10 = {b: [] for b in bodies}
+            for b in bodies + bodies[::-1]:
+                t1[b].append(device_ms(runs[b], iters=10))
+                if layer >= 5:
+                    t10[b].append(device_ms(runs[b], iters=10, calls=10))
+            plain = device_ms(ref, iters=10)
+            unfused = device_ms(unfused_layer(x, w, bias, gamma, beta, s), iters=10)
             size = x.element_size()
             nbytes = size * (B * t * cin + k * cin * cout + B * f_out * cout) \
                 + 4 * 3 * cout
             bnd, by = bound_ms(nbytes, 2 * B * f_out * k * cin * cout, "bf16")
-            total += ms
-            log(f"  kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-                f"{bnd:.4f} ms ({by})")
-            recs.append(dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                             bound_ms=bnd, bound_by=by, library_ms=None,
+            rule = conv_body(dtype, cin, cout)
+            for b in bodies:
+                total[b] += t1[b][0]
+            total["unfused"] += unfused
+            log(f"  one call a graph: " + ", ".join(
+                f"{b} {t1[b][0]:.4f} / {t1[b][1]:.4f}" for b in bodies)
+                + (("; ten calls a graph: " + ", ".join(
+                    f"{b} {t10[b][0]:.4f} / {t10[b][1]:.4f}" for b in bodies))
+                   if t10["mma"] else "")
+                + f" ms; plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}); "
+                f"the model's unfused bf16 layer (conv1d + LN + GELU, "
+                f"information) {unfused:.4f} ms; rule: {rule}")
+            recs.append(dict(max_abs_err=errs[rule], ms=t1[rule][0],
+                             plain_ms=plain, bound_ms=bnd, bound_by=by,
+                             library_ms=None, ffma_ms=t1["ffma"][0],
+                             unfused_layer_ms=unfused,
                              shape=f"x ({B},{t},{cin}) w ({k},{cin},{cout}) "
-                                   f"s={s} bf16"))
-    log(f"conv_ln_gelu_grouped: all six layers at batch {B}, bf16: "
-        f"{total:.4f} ms")
+                                   f"s={s} bf16, {rule} body"))
+    log(f"conv_ln_gelu_grouped: all six layers at batch {B}, bf16, one call "
+        f"a graph each: " + ", ".join(f"{b} {v:.4f} ms" for b, v in total.items()))
     return recs[0]
 
 
@@ -961,6 +1072,14 @@ def main() -> int:
                                                "tiled_kernelILi64E",
                                                "rows_kernelIfLi64E")):
         log(line)
+    for line in ptxas_summary("quant", ("quant_kernelILb1ELb1E",
+                                        "quant_kernelILb0ELb1E")):
+        log(line)
+    for line in ptxas_summary("convstack", ("conv_mma_kernelILi256ELi2E",
+                                            "conv_mma_kernelILi256ELi1E",
+                                            "conv_mma_kernelILi128ELi1E",
+                                            "conv_ln_gelu_kernelI13__nv_bfloat16Li512E")):
+        log(line)
     for line in ptxas_summary("gat", ("gat_tiled_kernelILi64ELi1E",
                                       "gat_tiled_kernelILi64ELi2E",
                                       "gat_tiled_kernelILi32ELi1E",
@@ -969,6 +1088,14 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(WORK, exist_ok=True)
+    t0 = time.perf_counter()
+    shell = get_model("XLSR_AASIST").module
+    sd = random_reference_state_dict(shell, seed=0)
+    del shell
+    log(f"full-width XLSR_AASIST, random weights (seed 0): "
+        f"{sum(v.numel() for k, v in sd.items() if 'running' not in k) / 1e6:.1f}"
+        f" M values, made in {time.perf_counter() - t0:.1f} s")
     records = {"mha_small_t": (check_attention(dev), "cuda",
                                "rtdsd_tpu_torch/csrc/mha_small_t.cu",
                                "rtdsd_tpu/ops/pallas/attention.py:91"),
@@ -978,7 +1105,7 @@ def main() -> int:
                "fused_htrg_gat_aggregate": (check_gat(dev, htrg=True), "cuda",
                                             "rtdsd_tpu_torch/csrc/gat.cu",
                                             "rtdsd_tpu/ops/pallas/gat.py:183"),
-               "quantize_int8": (check_quant(dev), "cuda",
+               "quantize_int8": (check_quant(dev, sd), "cuda",
                                  "rtdsd_tpu_torch/csrc/quant.cu",
                                  "rtdsd_tpu/ops/pallas/quant.py:71"),
                "ln_gelu": (check_ln_gelu(dev), "cuda",
@@ -988,17 +1115,11 @@ def main() -> int:
                                         "rtdsd_tpu_torch/csrc/convstack.cu",
                                         "rtdsd_tpu/ops/pallas/convstack.py:152")}
 
-    os.makedirs(WORK, exist_ok=True)
     t0 = time.perf_counter()
-    shell = get_model("XLSR_AASIST").module
-    sd = random_reference_state_dict(shell, seed=0)
-    del shell
     ckpt = os.path.join(WORK, "xlsr_aasist_seed0.pt")
     torch.save(sd, ckpt)
     write_track(WORK)
-    log(f"full-width XLSR_AASIST, random weights (seed 0): "
-        f"{sum(v.numel() for k, v in sd.items() if 'running' not in k) / 1e6:.1f}"
-        f" M values, saved in {time.perf_counter() - t0:.1f} s")
+    log(f"checkpoint and track saved in {time.perf_counter() - t0:.1f} s")
     loader_phase()
 
     run = main_path(ckpt)

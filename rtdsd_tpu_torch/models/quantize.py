@@ -32,7 +32,7 @@ _MATMUL = re.compile(r"^(?P<prefix>(.*\.)?layers\.)(?P<layer>\d+)\."
                      r")\.weight$")
 
 
-def _matmul_keys(sd: Mapping[str, torch.Tensor]) -> list:
+def matmul_keys(sd: Mapping[str, torch.Tensor]) -> list:
     """The transformer matmul weights of ``sd``, in the JAX order."""
     found = []
     for key in sd:
@@ -46,7 +46,7 @@ def _matmul_keys(sd: Mapping[str, torch.Tensor]) -> list:
 def quantize_state_dict(sd: Mapping[str, torch.Tensor], seed: int = 0
                         ) -> Dict[str, torch.Tensor]:
     """Float state dict -> w8 state dict (see the module docstring)."""
-    keys = _matmul_keys(sd)
+    keys = matmul_keys(sd)
     if not keys:
         raise ValueError(
             "quantize_state_dict found no transformer matmul weights; is "
@@ -63,4 +63,4 @@ def quantize_state_dict(sd: Mapping[str, torch.Tensor], seed: int = 0
 def w8_bytes_saved(sd: Mapping[str, torch.Tensor]) -> int:
     """Bytes of weight traffic removed per forward against bf16 storage:
     one per element of every float transformer matmul weight."""
-    return sum(sd[key].numel() for key in _matmul_keys(sd))
+    return sum(sd[key].numel() for key in matmul_keys(sd))

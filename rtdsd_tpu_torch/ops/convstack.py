@@ -11,8 +11,10 @@
 
 On CUDA tensors both kernel functions launch ``csrc/convstack.cu`` (design
 note at its top); on CPU tensors they run the plain PyTorch versions beside
-them. Unlike the JAX kernels, which emit frame counts rounded up to their
-block with garbage tails, these return exactly the valid frames.
+them. :func:`conv_body` is the rule that picks the conv layer's body: the
+bf16 tensor-core body where it applies, the CUDA-core FFMA body elsewhere.
+Unlike the JAX kernels, which emit frame counts rounded up to their block
+with garbage tails, these return exactly the valid frames.
 
 As in the JAX package this is an op, not wired into the encoder:
 ``models/wav2vec2.py::ConvFeatureExtractor`` stays the scoring path.
@@ -32,10 +34,12 @@ from rtdsd_tpu_torch.ops.fastgelu import erf_rational, _INV_SQRT2
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "ln_gelu": [_P, _P, _P, _P, _L, _I, _F, _I, _P],
-    "conv_ln_gelu": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    "conv_ln_gelu": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
 }
 LN_GELU_WIDTHS = (128, 256, 384, 512, 768, 1024)
 CONV_COUT = (128, 256, 512, 1024)
+CONV_BODIES = ("ffma", "mma")
+MMA_COUT = (128, 256, 512)
 SMEM_LIMIT = 232448
 _THREADS = 256
 
@@ -116,15 +120,36 @@ def _conv_smem_bytes(cin: int, cout: int) -> int:
     return 4 * frames * max(cin, cout)
 
 
+def conv_supported(cin: int, cout: int) -> bool:
+    """Whether the wrapper takes a layer of this Cin and Cout on a CUDA
+    tensor (the FFMA body takes every such shape, in both dtypes)."""
+    return (cout in CONV_COUT and cin % 4 == 0
+            and _conv_smem_bytes(cin, cout) <= SMEM_LIMIT)
+
+
+def conv_body(dtype: torch.dtype, cin: int, cout: int) -> str:
+    """The body of ``csrc/convstack.cu`` that a layer with this dtype, Cin
+    and Cout takes: bf16 with Cin a multiple of 64 and Cout in
+    ``MMA_COUT`` runs on the tensor cores ("mma"; at Cout 512 as a cluster
+    of two blocks that split Cout); float32 and every other shape the
+    wrapper takes run on the FFMA body ("ffma")."""
+    if dtype == torch.bfloat16 and cin % 64 == 0 and cout in MMA_COUT:
+        return "mma"
+    return "ffma"
+
+
 def conv_ln_gelu_grouped(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                          gamma: torch.Tensor, beta: torch.Tensor, *, k: int,
                          s: int, t_valid: Optional[int] = None,
-                         eps: float = 1e-5) -> torch.Tensor:
+                         eps: float = 1e-5,
+                         body: Optional[str] = None) -> torch.Tensor:
     """One fused layer y = GELU(LN(conv1d(x, w, b))), stride ``s``.
 
     x: (B, T, Cin); w: (k, Cin, Cout); ``t_valid`` (<= T) is the valid
     prefix of x. Returns (B, (t_valid - k) // s + 1, Cout) in x's dtype:
-    the valid frames only."""
+    the valid frames only. ``body`` (None: :func:`conv_body`'s choice)
+    names the kernel body on a CUDA tensor, to compare bodies: "ffma",
+    or "mma" for a shape the rule sends to the tensor cores."""
     if x.device.type == "cpu":
         return conv_ln_gelu_grouped_reference(x, w, b, gamma, beta, k=k, s=s,
                                               t_valid=t_valid, eps=eps)
@@ -140,13 +165,15 @@ def conv_ln_gelu_grouped(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if not (1 <= s and k <= t_valid <= t):
         raise ValueError(f"need s >= 1 and k <= t_valid <= T; got s={s}, "
                          f"k={k}, t_valid={t_valid}, T={t}")
-    if cout not in CONV_COUT or cin % 4:
+    if not conv_supported(cin, cout):
         raise ValueError(f"conv_ln_gelu_grouped takes Cout in {CONV_COUT} "
-                         f"and Cin a multiple of 4; got Cin={cin}, "
-                         f"Cout={cout}")
-    if _conv_smem_bytes(cin, cout) > SMEM_LIMIT:
-        raise ValueError(f"Cin={cin}, Cout={cout} exceed the conv kernel's "
-                         f"shared memory")
+                         f"and Cin a multiple of 4 whose frame tile fits "
+                         f"in shared memory; got Cin={cin}, Cout={cout}")
+    rule = conv_body(x.dtype, cin, cout)
+    body = rule if body is None else body
+    if body not in CONV_BODIES or (body == "mma" and rule == "ffma"):
+        raise ValueError(f"conv body {body!r} does not take {x.dtype}, "
+                         f"Cin={cin}, Cout={cout} (the rule gives {rule!r})")
     f_out = (t_valid - k) // s + 1
     xc = _dense(x, x.dtype, x.device)
     wc = _dense(w, x.dtype, x.device)
@@ -158,7 +185,7 @@ def conv_ln_gelu_grouped(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         rc = lib.conv_ln_gelu(xc.data_ptr(), wc.data_ptr(), bias.data_ptr(),
                               g.data_ptr(), bt.data_ptr(), out.data_ptr(),
                               bsz, t, cin, cout, f_out, k, s, float(eps),
-                              bf16, stream)
+                              bf16, int(body == "mma"), stream)
     build.check(rc, "conv_ln_gelu_grouped")
     conv_ln_gelu_grouped.launches += 1
     return out

@@ -4,7 +4,10 @@
 :func:`quantize_int8` turns an (R, C) float matrix into (R, C) int8 values
 and (1, C) float32 scales, ``scale = max(max|x|, 1e-12) * float32(1/127)``
 per column. On a CUDA tensor it launches ``csrc/quant.cu`` (design note at
-its top) and rounds stochastically by default, as the TPU kernel does;
+its top), one kernel and nothing else when x is a float32 matrix either
+row-major or the transposed view of a row-major one (a model's
+``weight.t()``: see :func:`kernel_operand`), and rounds stochastically by
+default, as the TPU kernel does;
 ``stochastic=False`` asks the kernel for round-to-nearest. On a CPU tensor
 it runs
 :func:`quantize_int8_reference` and rounds to nearest by default, which is
@@ -27,7 +30,7 @@ import torch
 from rtdsd_tpu_torch.ops import build
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-_SIGNATURES = {"quantize_int8_f32": [_P, _P, _P, _I, _I, _U, _I, _P]}
+_SIGNATURES = {"quantize_int8_f32": [_P, _P, _P, _I, _I, _U, _I, _I, _P]}
 _M32 = 0xFFFFFFFF
 
 
@@ -77,6 +80,20 @@ def quantize_int8_reference(x: torch.Tensor, seed: int = 0,
     return q.clamp(-128, 127).to(torch.int8), scale
 
 
+def kernel_operand(x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """The float32 matrix the kernel reads for x, and whether it is the
+    transposed view of a row-major matrix (strides (1, R)). Both layouts
+    are read in place; any other layout or dtype is copied to a row-major
+    float32 matrix first."""
+    x = x.detach()
+    if x.dtype == torch.float32:
+        if x.is_contiguous():
+            return x, False
+        if x.t().is_contiguous():
+            return x, True
+    return x.float().contiguous(), False
+
+
 def quantize_int8(x: torch.Tensor, seed: int = 0,
                   stochastic: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -92,7 +109,7 @@ def quantize_int8(x: torch.Tensor, seed: int = 0,
         raise TypeError(f"quantize_int8 takes a float CUDA or CPU tensor, got "
                         f"{x.dtype} on {x.device}")
     r, c = x.shape
-    x32 = x.detach().float().contiguous()
+    x32, transposed = kernel_operand(x)
     vals = torch.empty((r, c), dtype=torch.int8, device=x.device)
     scales = torch.empty((1, c), dtype=torch.float32, device=x.device)
     lib = build.library("quant", _SIGNATURES)
@@ -101,7 +118,7 @@ def quantize_int8(x: torch.Tensor, seed: int = 0,
         rc = lib.quantize_int8_f32(x32.data_ptr(), vals.data_ptr(),
                                    scales.data_ptr(), r, c, seed & _M32,
                                    int(stochastic is None or stochastic),
-                                   stream)
+                                   int(transposed), stream)
     build.check(rc, "quantize_int8")
     quantize_int8.launches += 1
     return vals, scales

@@ -13,8 +13,10 @@ output rounding step (2^-8 of the value, ulp(1) = 7.8e-3), rtol and atol
 2e-2.
 
 Tests marked ``gpu`` hold each CUDA kernel against its plain version on the
-card (float32 with TF32 off) and skip without one. JAX is imported by a
-fixture, so that they also collect on a machine without it.
+card (float32 with TF32 off) and skip without one; the conv layer's bf16
+tensor-core body is held to the bf16 tolerance at the edges of its tiles.
+JAX is imported by a fixture, so that they also collect on a machine
+without it.
 """
 
 import numpy as np
@@ -180,6 +182,38 @@ def test_supports_fused_gives_jax_answers(jx, layers, mode):
         jx[2].supports_fused(layers, mode)
 
 
+# ------------------------------------------------- the conv body rule
+
+def _taken_before(cin, cout):
+    """The wrapper's shape rule before the bf16 tensor-core body came in:
+    the FFMA body's Cout set, Cin a multiple of 4, and its frame tile (16
+    frames a thread row, 256 threads of Cout / 4 columns) of max(Cin, Cout)
+    floats within shared memory."""
+    frames = 16 * (256 // (cout // 4)) if cout >= 4 else 0
+    return (cout in (128, 256, 512, 1024) and cin % 4 == 0
+            and 4 * frames * max(cin, cout) <= 232448)
+
+
+@pytest.mark.parametrize("cout", [64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("cin", [4, 60, 64, 100, 128, 192, 512, 1536, 2048])
+def test_conv_body_rule(cin, cout):
+    # the wrapper takes exactly the shapes it took before; bf16 with Cin a
+    # multiple of 64 and Cout in {128, 256, 512} goes to the tensor cores,
+    # everything else (float32 always) to the FFMA body
+    assert convstack.conv_supported(cin, cout) == _taken_before(cin, cout)
+    mma = cin % 64 == 0 and cout in (128, 256, 512)
+    assert convstack.conv_body(torch.bfloat16, cin, cout) == (
+        "mma" if mma else "ffma")
+    assert convstack.conv_body(torch.float32, cin, cout) == "ffma"
+
+
+def test_flagship_layers_take_the_tensor_core_body():
+    for i, (cout, k, s) in enumerate(FLAGSHIP[1:]):
+        cin = FLAGSHIP[i][0]
+        assert convstack.conv_supported(cin, cout)
+        assert convstack.conv_body(torch.bfloat16, cin, cout) == "mma"
+
+
 # ------------------------------------------------- kernels on the card
 
 @pytest.fixture
@@ -251,3 +285,45 @@ def test_fused_frontend_kernels_match_port_extractor(cuda):
             convstack.conv_ln_gelu_grouped.launches) == (before[0] + 1,
                                                         before[1] + 6)
     torch.testing.assert_close(got, want, rtol=0, atol=5e-4)
+
+
+# (b, t, cin, cout, k, s, t_valid, body): batch 1 and 16, frame counts that
+# are no multiple of the 128- / 256-frame tiles (and fewer frames than
+# one tile), t_valid < T, k 2 and 3, Cin 128 and 512, every Cout the rule
+# sends to the tensor cores ("mma", a cluster pair at Cout 512; None: the
+# rule's choice); the last two the rule sends to the FFMA body
+_MMA_CASES = [
+    (1, 12799, 512, 512, 3, 2, 12799, None),
+    (16, 799, 512, 512, 2, 2, 790, None),
+    (16, 399, 512, 512, 2, 2, 399, "mma"),
+    (2, 97, 512, 512, 3, 2, 97, "mma"),
+    (2, 130, 128, 128, 3, 2, 127, "mma"),
+    (3, 200, 128, 256, 3, 2, 200, "mma"),
+    (3, 200, 128, 512, 3, 2, 199, "mma"),
+    (2, 301, 512, 256, 2, 2, 300, "mma"),
+    (2, 61, 96, 512, 3, 2, 60, "ffma"),
+    (2, 30, 128, 1024, 2, 1, 30, "ffma"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,cin,cout,k,s,t_valid,body", _MMA_CASES)
+def test_conv_mma_body_matches_plain(cuda, b, t, cin, cout, k, s, t_valid,
+                                     body):
+    x = torch.from_numpy(_np(14, (b, t, cin))).to(cuda, torch.bfloat16)
+    w, bias = (torch.from_numpy(a).to(cuda) for a in
+               (_np(15, (k, cin, cout), (k * cin) ** -0.5),
+                _np(16, (cout,), 0.1)))
+    gamma, beta = (torch.from_numpy(a).to(cuda) for a in _ln_params(17, cout))
+    rule = convstack.conv_body(torch.bfloat16, cin, cout)
+    assert (rule == "ffma") == (body == "ffma")
+    before = convstack.conv_ln_gelu_grouped.launches
+    got = convstack.conv_ln_gelu_grouped(x, w, bias, gamma, beta, k=k, s=s,
+                                         t_valid=t_valid, body=body)
+    torch.cuda.synchronize()
+    assert convstack.conv_ln_gelu_grouped.launches == before + 1
+    want = convstack.conv_ln_gelu_grouped_reference(x, w, bias, gamma, beta,
+                                                    k=k, s=s, t_valid=t_valid)
+    assert got.shape == want.shape == (b, (t_valid - k) // s + 1, cout)
+    rtol, atol = TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)

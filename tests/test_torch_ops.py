@@ -364,13 +364,28 @@ def test_gat_tanh_against_tanhf(cuda):
     assert (fast - x.double().tanh()).abs().max().item() < 1e-6
 
 
+def _quant_input(shape, seed, transposed, scale=None):
+    """An (R, C) float32 matrix on the card, row-major or as the transposed
+    view of a row-major (C, R) one (a model's weight.t())."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r, c = shape
+    scale = r ** -0.5 if scale is None else scale
+    if transposed:
+        return (torch.randn((c, r), generator=g, device="cuda") * scale).t()
+    return torch.randn((r, c), generator=g, device="cuda") * scale
+
+
+# the flagship's three (in, out) shapes, then shapes whose R and C are no
+# multiple of the kernel's 512-row / 32-column tile or of 16, a single row,
+# R past the largest cluster's 4096 rows (blocks that hold two row tiles)
 @pytest.mark.gpu
+@pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("stochastic", [False, True])
 @pytest.mark.parametrize("shape", [(1024, 1024), (1024, 4096), (4096, 1024),
-                                   (37, 130), (3, 5)])
-def test_quantize_kernel_matches_plain(cuda, stochastic, shape):
-    g = torch.Generator(device="cuda").manual_seed(7)
-    x = torch.randn(shape, generator=g, device=cuda) * shape[0] ** -0.5
+                                   (37, 130), (3, 5), (1, 7), (100, 130),
+                                   (257, 384), (4095, 1000), (9000, 40)])
+def test_quantize_kernel_matches_plain(cuda, stochastic, shape, transposed):
+    x = _quant_input(shape, 7, transposed)
     before = quant.quantize_int8.launches
     vals, scales = quant.quantize_int8(x, seed=7919 * 3, stochastic=stochastic)
     torch.cuda.synchronize()
@@ -381,17 +396,19 @@ def test_quantize_kernel_matches_plain(cuda, stochastic, shape):
 
 
 @pytest.mark.gpu
-def test_quantize_kernel_default_is_stochastic_and_unbiased(cuda):
-    g = torch.Generator(device="cuda").manual_seed(8)
-    x = torch.randn((4096, 1024), generator=g, device=cuda)
+@pytest.mark.parametrize("transposed", [False, True])
+def test_quantize_kernel_default_is_stochastic_and_unbiased(cuda, transposed):
+    x = _quant_input((4096, 1024), 8, transposed, scale=1.0)
     vals, scales = quant.quantize_int8(x, seed=5)
     assert torch.equal(vals, quant.quantize_int8_reference(x, 5, True)[0])
     scaled = x.double() / scales.double()
     err = vals.double() - scaled
     assert err.abs().max() < 1.0                 # |dequant - x| < scale
     var = (scaled - scaled.floor()) * (scaled.floor() + 1 - scaled)
-    # per-column mean error within 6 standard errors of 0
+    # per-column mean error within 6 standard errors of 0, and the whole
+    # matrix's, as chip_smoke.py's check_quant holds it
     assert (err.mean(0).abs() < 6 * var.sum(0).sqrt() / x.shape[0]).all()
+    assert err.mean().abs() < 6 * var.sum().sqrt() / err.numel()
 
 
 @pytest.mark.gpu

@@ -119,6 +119,51 @@ def test_dequantize_and_quantized_matmul():
                                x @ deq, rtol=1e-5, atol=1e-5)
 
 
+def _layouts():
+    """(name, x, read in place, transposed) for kernel_operand."""
+    w = torch.from_numpy(_matrix(5, (12, 8)))             # a (out, in) weight
+    return [("row_major", w, True, False),
+            ("weight_t", w.t(), True, True),
+            ("weight_t_rows", w[:5].t(), True, True),
+            ("single_row", w[:1], True, False),
+            ("column_slice", w[:, ::2], False, False),
+            ("row_slice_t", w.t()[::2], False, False),
+            ("broadcast", w[:1].expand(4, 8), False, False),
+            ("bf16_weight_t", w.bfloat16().t(), False, False)]
+
+
+@pytest.mark.parametrize("case", range(len(_layouts())),
+                         ids=[c[0] for c in _layouts()])
+def test_quantize_kernel_operand_layouts(case):
+    """The kernel reads a row-major float32 matrix and the transposed view
+    of one (a model's weight.t()) in place; any other layout or dtype is
+    made a row-major float32 copy first."""
+    _, x, in_place, transposed = _layouts()[case]
+    got, trans = quant.kernel_operand(x)
+    assert trans == transposed and got.dtype == torch.float32
+    assert torch.equal(got, x.float())
+    if in_place:
+        assert got.data_ptr() == x.data_ptr() and got.stride() == x.stride()
+    else:
+        assert got.is_contiguous() and got.data_ptr() != x.data_ptr()
+
+
+def test_quantizer_passes_weights_without_a_copy(tiny_encoder, monkeypatch):
+    """quantize_state_dict hands every matrix to the kernel as the
+    transposed view of its weight, which the kernel reads in place."""
+    _, sd = tiny_encoder
+    seen = []
+
+    def record(x, seed=0, stochastic=None):
+        operand, transposed = quant.kernel_operand(x)
+        seen.append((operand.data_ptr() == x.data_ptr(), transposed))
+        return quant.quantize_int8(x, seed, stochastic)
+
+    monkeypatch.setattr(quantize, "quantize_int8", record)
+    quantize.quantize_state_dict({k: t.contiguous() for k, t in sd.items()})
+    assert seen == [(True, True)] * 18
+
+
 # ------------------------------------------------------- W8 / W8A8 layers
 
 def _layer_inputs(seed, rows=5, k=16, n=8):
