@@ -53,14 +53,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       JAX package) on (16, 64000) waves with the model's front-end weights,
       against the port's ``ConvFeatureExtractor``: 1 ``ln_gelu`` and 6
       ``conv_ln_gelu_grouped`` launches;
+   d. the Conformer: a full-width XLSR_Conformer (24 layers, width 1024,
+      emb 144, 4 heads, kernel 31, 4 blocks; random weights from seed 0)
+      saved as a reference-named ``.pt`` and the 32 clips scored through
+      the CLI with ``model: ConformerModel`` in bf16 (``fast_softmax:
+      false``): 24 ``mha_small_t`` launches per batch and no other kernel;
+      then with ``--w8a8``: 144 ``quantize_int8`` launches too;
+   e. a cascade: the screener, a full-width My_XLSR_AASIST (layers 0-4 and
+      23, the student of ``configs/kd_xlsr6_aasist.yaml``, ``fused_gat``,
+      seed 1, its own ``--cascade_config``), scores the clips alone; then
+      the cascade with the Conformer of (d) as the full model and the band
+      halfway between the 16th and 17th smallest |screener score|: 16
+      trials escalate, 6 x 2 + 24 ``mha_small_t``, 2 x 2 and 4 x 2 GAT
+      launches; lines that did not escalate are the screener's scores
+      exactly, escalated ones the Conformer's within the CLI-versus-forward
+      tolerance;
+   f. ``configs/realtime_b1.yaml``'s model kwargs (``conv_segments: 8``) on
+      the XLSR_AASIST of (a): one bf16 clip's logits against the same
+      weights unsegmented, within the CLI-versus-forward tolerance;
 5. one full-width float32 batch with the kernels against the same batch
-   with every kernel swapped for its plain version (TF32 off): logits agree;
-   then steady-state ms per clip (f32 at batch 16; bf16, w8 and w8a8 at
-   batch 16 and batch 1, timed in turns over five rounds) and
-   torch.profiler breakdowns of the device time of one f32 and one bf16
-   batch of 16 and of one w8a8 batch of 16 and of 1, and the kernels that
-   the bf16 batch's six GAT calls launch (the GAT kernels and any cast or
-   copy inside the calls).
+   with every kernel swapped for its plain version (TF32 off): logits agree,
+   for XLSR_AASIST and for XLSR_Conformer;
+   then steady-state ms per clip (f32 at batch 16; bf16, w8, w8a8 and the
+   bf16 XLSR_Conformer at batch 16 and batch 1, timed in turns over five
+   rounds) and torch.profiler breakdowns of the device time of one f32 and
+   one bf16 batch of 16, of one w8a8 batch of 16 and of 1, and of one bf16
+   XLSR_Conformer batch of 16 with its head's share (the back-end profiled
+   alone on the same batch's encoder features), and the kernels that the
+   bf16 batch's six GAT calls launch (the GAT kernels and any cast or copy
+   inside the calls).
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit line, and as its last line ``{"ok": true, "device": {...}}``. Scratch
@@ -675,7 +696,8 @@ def random_reference_state_dict(model: torch.nn.Module, seed: int) -> dict:
     """Random weights from a seed, under the reference's names: linear and
     conv weights ~ N(0, 1/fan_in), biases small, norms at identity, BN
     running stats non-trivial; the positional conv split into fairseq's
-    weight_g / weight_v, and the reference's dead bn1 keys included."""
+    weight_g / weight_v, and for an AASIST head the reference's dead bn1
+    keys included."""
     g = torch.Generator().manual_seed(seed)
     sd = {}
     for name, t in model.state_dict().items():
@@ -700,6 +722,8 @@ def random_reference_state_dict(model: torch.nn.Module, seed: int) -> dict:
     sd[pos + "_g"] = w.pow(2).sum(dim=(0, 1), keepdim=True).sqrt()
     sd[pos + "_v"] = w
     for i in range(1, 6):
+        if f"encoder.{i}.0.conv1.weight" not in sd:     # not an AASIST head
+            break
         c = sd[f"encoder.{i}.0.conv1.weight"].shape[1]
         for leaf, val in (("weight", torch.ones(c)), ("bias", torch.zeros(c)),
                           ("running_mean", torch.zeros(c)),
@@ -729,7 +753,7 @@ def write_track(root: str) -> None:
 
 
 def write_config(root: str, dtype: str, model: str = "XLSR_AASIST",
-                 kwargs: dict = None) -> str:
+                 kwargs: dict = None, name: str = None) -> str:
     kwargs = kwargs or {"fused_gat": True, "w2v": {"fast_softmax": False}}
     cfg = {"SysConfig": {"model": model, "wandb_disabled": True,
                          "path_label_asv_spoof_2021_la_eval": f"{root}/la21.txt",
@@ -738,7 +762,7 @@ def write_config(root: str, dtype: str, model: str = "XLSR_AASIST",
            "ExpConfig": {"compute_dtype": dtype, "batch_size_test": B,
                          "test_duration_sec": SAMPLES / 16000,
                          "kwargs": kwargs}}
-    path = os.path.join(root, f"config_{dtype}.json")
+    path = os.path.join(root, f"config_{name or dtype}.json")
     with open(path, "w") as f:
         json.dump(cfg, f, indent=1)       # JSON syntax: loads with or without PyYAML
     return path
@@ -852,21 +876,19 @@ def gat_call_kernels(model, waves) -> None:
         + "".join(f"; {k[:70]} x{c}" for k, c in sorted(around.items())))
 
 
-def main_path(ckpt: str, mode: str = "") -> dict:
-    """Score the track through the CLI in bf16, plain (``mode`` "") or with
-    ``--w8`` / ``--w8a8``; check the scores and the launch counts."""
+def run_cli(cfg: str, ckpt: str, tag: str, extra=()) -> tuple:
+    """Score the track through the CLI with every launch counter zeroed
+    just before; -> (launches, {utt_id: score}, wall s). The score file
+    must hold N_CLIPS finite scores."""
     from rtdsd_tpu_torch.cli import main as cli
 
-    cfg = write_config(WORK, "bfloat16")
-    tag = mode or "bf16"
     scores = os.path.join(WORK, f"scores_la21_{tag}.txt")
     if os.path.exists(scores):
         os.remove(scores)
     reset_counters()
     t0 = time.perf_counter()
     cli.main(["--config", cfg, "--is_eval", "--is_score", "--ckpt", ckpt,
-              "--tracks", "LA21", "--comment", tag]
-             + ([f"--{mode}"] if mode else []))
+              "--tracks", "LA21", "--comment", tag] + list(extra))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
@@ -874,20 +896,132 @@ def main_path(ckpt: str, mode: str = "") -> dict:
         lines = f.read().splitlines()
     vals = np.array([float(l.split(" ")[1]) for l in lines])
     if len(lines) != N_CLIPS or not np.all(np.isfinite(vals)):
-        raise RuntimeError(f"score file has {len(lines)} lines, finite: "
-                           f"{np.isfinite(vals).sum()}")
-    batches = -(-N_CLIPS // B)
-    want = {"mha_small_t": 24 * batches, "fused_gat_aggregate": 2 * batches,
-            "fused_htrg_gat_aggregate": 4 * batches,
-            "quantize_int8": 144 if mode else 0,
+        raise RuntimeError(f"{tag}: score file has {len(lines)} lines, "
+                           f"finite: {np.isfinite(vals).sum()}")
+    return launches, {l.split(" ")[0]: float(l.split(" ")[1])
+                      for l in lines}, wall
+
+
+def launches_want(attention=0, gat=0, quantize=0) -> dict:
+    """Expected counters; ``gat`` counts AASIST forwards (2 + 4 launches)."""
+    return {"mha_small_t": attention, "fused_gat_aggregate": 2 * gat,
+            "fused_htrg_gat_aggregate": 4 * gat, "quantize_int8": quantize,
             "ln_gelu": 0, "conv_ln_gelu_grouped": 0}
-    log(f"{tag} path: {len(lines)} finite scores; launches {launches} "
+
+
+def main_path(ckpt: str, mode: str = "") -> dict:
+    """Score the track through the CLI in bf16, plain (``mode`` "") or with
+    ``--w8`` / ``--w8a8``; check the scores and the launch counts."""
+    tag = mode or "bf16"
+    launches, scores, wall = run_cli(write_config(WORK, "bfloat16"), ckpt,
+                                     tag, [f"--{mode}"] if mode else [])
+    batches = -(-N_CLIPS // B)
+    want = launches_want(24 * batches, batches, 144 if mode else 0)
+    log(f"{tag} path: {len(scores)} finite scores; launches {launches} "
         f"(want {want}); CLI wall {wall:.2f} s incl. model build, load"
         f"{' and quantization' if mode else ''}")
     if launches != want:
         raise RuntimeError(f"kernel launches {launches} != {want}")
-    return {"launches": launches, "scores": dict(
-        (l.split(" ")[0], float(l.split(" ")[1])) for l in lines)}
+    return {"launches": launches, "scores": scores}
+
+
+# the Conformer runs its encoder's attention through the kernel, as 4a does
+CONFORMER_KWARGS = {"w2v": {"fast_softmax": False}}
+# the 6-layer student of configs/kd_xlsr6_aasist.yaml, the cascade's screener
+SCREENER_KWARGS = {"num_layers": 6, "order": "custom",
+                   "custom_order": [0, 1, 2, 3, 4, 23], "fused_gat": True,
+                   "w2v": {"fast_softmax": False}}
+
+
+def conformer_path(ckpt: str) -> dict:
+    """4d: the full-width XLSR_Conformer (``model: ConformerModel``)
+    through the CLI in bf16 and with ``--w8a8``; -> the bf16 scores."""
+    cfg = write_config(WORK, "bfloat16", "ConformerModel", CONFORMER_KWARGS,
+                       name="conformer")
+    batches = -(-N_CLIPS // B)
+    scores = {}
+    for mode in ("", "w8a8"):
+        tag = "conformer_" + (mode or "bf16")
+        launches, scores[tag], wall = run_cli(cfg, ckpt, tag,
+                                              [f"--{mode}"] if mode else [])
+        want = launches_want(24 * batches, quantize=144 if mode else 0)
+        log(f"{tag} path: {N_CLIPS} finite scores; launches {launches} (want "
+            f"{want}); CLI wall {wall:.2f} s incl. model build and load"
+            f"{' and quantization' if mode else ''}")
+        if launches != want:
+            raise RuntimeError(f"kernel launches {launches} != {want}")
+    return scores["conformer_bf16"]
+
+
+def cascade_path(ckpt: str, screener_ckpt: str, conformer: dict) -> None:
+    """4e: the screener alone, then the cascade with the band halfway
+    between the 16th and 17th smallest |screener score|: 16 trials
+    escalate to the Conformer. Lines that did not escalate are the
+    screener's scores exactly; escalated ones the Conformer's within the
+    CLI-versus-forward tolerance."""
+    cfg_s = write_config(WORK, "bfloat16", "My_XLSR_AASIST", SCREENER_KWARGS,
+                         name="screener")
+    batches = -(-N_CLIPS // B)
+    launches, screen, wall = run_cli(cfg_s, screener_ckpt, "screener")
+    want = launches_want(6 * batches, batches)
+    log(f"screener (My_XLSR_AASIST, layers {SCREENER_KWARGS['custom_order']})"
+        f": launches {launches} (want {want}); CLI wall {wall:.2f} s")
+    if launches != want:
+        raise RuntimeError(f"kernel launches {launches} != {want}")
+    mags = np.sort(np.abs(list(screen.values())))
+    half = N_CLIPS // 2
+    if not mags[half - 1] < mags[half]:
+        raise RuntimeError("tied screener scores at the band's edge")
+    band = float((mags[half - 1] + mags[half]) / 2)
+    launches, cascade, wall = run_cli(
+        os.path.join(WORK, "config_conformer.json"), ckpt, "cascade",
+        ["--cascade_ckpt", screener_ckpt, "--cascade_config", cfg_s,
+         "--cascade_band", repr(band), "--cascade_center", "0"])
+    esc = sorted(u for u, v in screen.items() if abs(v) <= band)
+    want = launches_want(6 * batches + 24 * -(-len(esc) // B), batches)
+    kept = sum(cascade[u] == screen[u] for u in screen if u not in esc)
+    err = max(abs(cascade[u] - conformer[u]) for u in esc)
+    scale = max(1.0, max(abs(conformer[u]) for u in esc))
+    log(f"cascade (band {band:.6g} around 0): {len(esc)}/{N_CLIPS} escalated; "
+        f"launches {launches} (want {want}); {kept}/{N_CLIPS - len(esc)} kept "
+        f"lines equal the screener's; escalated vs the Conformer's own bf16 "
+        f"scores max|d| {err:.3g} (tol {0.05 * scale:.3g}); CLI wall "
+        f"{wall:.2f} s incl. both models' build and load")
+    if len(esc) != half or launches != want:
+        raise RuntimeError(f"cascade escalated {len(esc)}, launches {launches}")
+    if kept != N_CLIPS - len(esc) or err > 0.05 * scale:
+        raise RuntimeError("cascade scores differ from the two models' own")
+
+
+def realtime_path(sd: dict, dev) -> None:
+    """4f: configs/realtime_b1.yaml's model kwargs (``conv_segments: 8``)
+    on the full-width XLSR_AASIST, against the same weights unsegmented, one
+    bf16 clip."""
+    from rtdsd_tpu_torch.config import load_yaml_config
+    from rtdsd_tpu_torch.models.convert import load_reference_state_dict
+    from rtdsd_tpu_torch.models.registry import get_model
+
+    sys_cfg, exp_cfg = load_yaml_config(os.path.join(ROOT, "configs",
+                                                     "realtime_b1.yaml"))
+    w2v = exp_cfg.kwargs["w2v"]
+    ref = load_reference_state_dict(sd)
+    wave = batch_waves(dev)[:1]
+    logits = {}
+    for n in (w2v["conv_segments"], 0):
+        spec = get_model(sys_cfg.model, dtype=torch.bfloat16,
+                         **{**exp_cfg.kwargs, "w2v": {**w2v, "conv_segments": n}})
+        spec.module.to(dev).load_state_dict(ref, strict=True)
+        with torch.inference_mode():
+            logits[n] = spec.module.eval()(wave).float()
+        del spec
+    seg = logits[w2v["conv_segments"]]
+    err = (seg - logits[0]).abs().max().item()
+    scale = max(1.0, logits[0].abs().max().item())
+    log(f"realtime_b1 ({sys_cfg.model}, {exp_cfg.compute_dtype}, kwargs "
+        f"{exp_cfg.kwargs}): one clip, logits conv_segments "
+        f"{w2v['conv_segments']} vs 0 max|d| {err:.3g} (tol {0.05 * scale:.3g})")
+    if not torch.isfinite(seg).all() or err > 0.05 * scale:
+        raise RuntimeError("conv_segments logits differ from unsegmented")
 
 
 def frontend_path(sd: dict, dev) -> dict:
@@ -976,25 +1110,35 @@ KERNEL_CLASSES = (("mha_small_t kernel", ("mha_small_t",)),
                   ("elementwise", ("elementwise",)))
 
 
-def profile_forward(model, waves, top: int = 12, label: str = "bf16") -> None:
-    """Where one batch's forward spends device time: kernels by device time
-    (torch.profiler / CUPTI), grouped by class, and the device's busy share
-    of the wall time."""
+def _profiled(fn):
+    """(kernel rows (name, device ms, count), wall ms) of one call of
+    ``fn`` after a warm-up call, by torch.profiler (CUPTI)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
-        model(waves)
+        fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model(waves)
+            fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+    return [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0], wall_ms
+
+
+def profile_forward(model, waves, top: int = 12, label: str = "bf16",
+                    head=None) -> None:
+    """Where one batch's forward spends device time: kernels by device time
+    (torch.profiler / CUPTI), grouped by class, and the device's busy share
+    of the wall time. ``head``, a back-end's forward, is then profiled
+    alone on the encoder's features of the same batch: its share of the
+    batch's kernel time on a line of its own."""
+    rows, wall_ms = _profiled(lambda: model(waves))
     busy = sum(r[1] for r in rows)
     log(f"profile, one {label} batch of {waves.shape[0]}: wall {wall_ms:.2f} ms, "
         f"kernels {busy:.2f} ms (device busy {100 * busy / wall_ms:.1f}%), "
@@ -1010,6 +1154,17 @@ def profile_forward(model, waves, top: int = 12, label: str = "bf16") -> None:
         log(f"  class {cls:22s} {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n}")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<5d} {key[:90]}")
+    if head is not None:
+        with torch.inference_mode():
+            feats = model.ssl_model.model(waves)
+        head_rows, head_wall = _profiled(lambda: head(feats))
+        head_ms = sum(r[1] for r in head_rows)
+        log(f"  head (the back-end alone on the encoder's features): "
+            f"{head_ms:.3f} ms of kernels, {100 * head_ms / busy:.1f}% of the "
+            f"batch's {busy:.2f} ms; wall {head_wall:.2f} ms, "
+            f"{sum(r[2] for r in head_rows)} kernel launches; top: "
+            + "; ".join(f"{k[:50]} {ms:.3f} ms x{n}" for k, ms, n in
+                        sorted(head_rows, key=lambda r: -r[1])[:4]))
 
 
 @contextlib.contextmanager
@@ -1033,14 +1188,15 @@ def plain_kernels():
 
 
 def build_model(sd: dict, dtype: torch.dtype, dev, fast_softmax=False,
-                mode: str = ""):
-    """The main-path model; ``mode`` "w8" / "w8a8" quantizes the weights on
-    the card, as the CLI's ``--w8`` / ``--w8a8`` do."""
+                mode: str = "", name: str = "XLSR_AASIST"):
+    """The main-path model (or the Conformer, ``name`` "XLSR_Conformer");
+    ``mode`` "w8" / "w8a8" quantizes the weights on the card, as the CLI's
+    ``--w8`` / ``--w8a8`` do."""
     from rtdsd_tpu_torch.models.convert import load_reference_state_dict
     from rtdsd_tpu_torch.models.quantize import quantize_state_dict
     from rtdsd_tpu_torch.models.registry import get_model
 
-    spec = get_model("XLSR_AASIST", dtype=dtype, fused_gat=True,
+    spec = get_model(name, dtype=dtype, fused_gat=True,
                      w2v={"fast_softmax": fast_softmax, "w8": bool(mode),
                           "a8": mode == "w8a8"})
     ref = load_reference_state_dict(sd)
@@ -1059,7 +1215,7 @@ def main() -> int:
     from rtdsd_tpu_torch.models.registry import get_model
 
     dev = torch.device("cuda")
-    name, card = torch.cuda.get_device_name(0), smi()
+    kind, card = torch.cuda.get_device_name(0), smi()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     log(f"card: {card}")
@@ -1131,6 +1287,21 @@ def main() -> int:
             f"{max(abs(v) for v in run['scores'].values()):.4g}")
     frontend_launches = frontend_path(sd, dev)
 
+    t0 = time.perf_counter()
+    ckpts, sds = {}, {}
+    for key, model_name, kwargs, seed in (
+            ("conformer", "XLSR_Conformer", {}, 0),
+            ("screener", "My_XLSR_AASIST", SCREENER_KWARGS, 1)):
+        sds[key] = random_reference_state_dict(
+            get_model(model_name, **kwargs).module, seed=seed)
+        ckpts[key] = os.path.join(WORK, f"{key}_seed{seed}.pt")
+        torch.save(sds[key], ckpts[key])
+    log(f"full-width XLSR_Conformer (seed 0) and screener (seed 1), random "
+        f"weights, made and saved in {time.perf_counter() - t0:.1f} s")
+    conformer_scores = conformer_path(ckpts["conformer"])
+    cascade_path(ckpts["conformer"], ckpts["screener"], conformer_scores)
+    realtime_path(sd, dev)
+
     # phase 5: one f32 batch, kernels against plain versions, TF32 off
     waves = batch_waves(dev)
     model = build_model(sd, torch.float32, dev)
@@ -1146,6 +1317,20 @@ def main() -> int:
         raise RuntimeError(f"f32 logits drift {drift} > {LOGIT_TOL}")
     f32_ms = steady_ms_per_clip(model, waves)
     profile_forward(model, waves, label="f32")
+    del model
+    model = build_model(sds["conformer"], torch.float32, dev,
+                        name="XLSR_Conformer")
+    with torch.inference_mode():
+        with_kernels = model(waves).float()
+        with plain_kernels():
+            plain_c = model(waves).float()
+    torch.cuda.synchronize()
+    drift = (with_kernels - plain_c).abs().max().item()
+    log(f"f32 full-width XLSR_Conformer batch: logits kernels vs plain max|d| "
+        f"{drift:.3g} (tol {LOGIT_TOL}); |logits| max "
+        f"{plain_c.abs().max().item():.3g}")
+    if not torch.isfinite(with_kernels).all() or drift > LOGIT_TOL:
+        raise RuntimeError(f"f32 Conformer logits drift {drift} > {LOGIT_TOL}")
     del model
     bf16 = build_model(sd, torch.bfloat16, dev)
     bf16_ms = steady_ms_per_clip(bf16, waves)
@@ -1167,9 +1352,15 @@ def main() -> int:
     gat_call_kernels(bf16, waves)
     models = {"bf16": bf16,
               **{mode: build_model(sd, torch.bfloat16, dev, mode=mode)
-                 for mode in ("w8", "w8a8")}}
+                 for mode in ("w8", "w8a8")},
+              "conformer": build_model(sds["conformer"], torch.bfloat16, dev,
+                                       name="XLSR_Conformer")}
     profile_forward(models["w8a8"], waves, label="w8a8")
     profile_forward(models["w8a8"], waves[:1], top=0, label="w8a8")
+    from rtdsd_tpu_torch.models.conformer import ConformerBackend
+    conformer = models["conformer"]
+    profile_forward(conformer, waves, label="XLSR_Conformer bf16",
+                    head=lambda feats: ConformerBackend.forward(conformer, feats))
     # the three modes in turns, STEADY_REPEATS rounds: the host launches
     # every kernel, and at batch 1 its speed, which varies between machines
     # and over a run, sets the time
@@ -1177,8 +1368,9 @@ def main() -> int:
     for _ in range(STEADY_REPEATS):
         for (m, b), times in steady.items():
             times.append(steady_ms_per_clip(models[m], waves[:b]))
-    del models, bf16
-    log(f"steady forward, ms/clip (bf16 compute), median [min, max] of "
+    del models, bf16, conformer
+    log(f"steady forward, ms/clip (bf16 compute; conformer: XLSR_Conformer), "
+        f"median [min, max] of "
         f"{STEADY_REPEATS} rounds: " + ", ".join(
             f"{m} batch {b} {statistics.median(t):.4f} [{min(t):.4f}, "
             f"{max(t):.4f}]" for (m, b), t in steady.items()))
@@ -1203,7 +1395,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 

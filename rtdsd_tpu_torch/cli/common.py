@@ -9,6 +9,7 @@ from typing import Optional
 import torch
 
 from rtdsd_tpu_torch.config import ExpConfig, SysConfig
+from rtdsd_tpu_torch.data.dataset import AudioDataset
 from rtdsd_tpu_torch.data.loader import EvalLoader
 from rtdsd_tpu_torch.engine.steps import make_score_step
 from rtdsd_tpu_torch.models.convert import load_reference_state_dict
@@ -62,9 +63,9 @@ def apply_w8(sys_config: SysConfig, exp_config: ExpConfig, spec: ModelSpec,
 def load_eval_model(sys_config: SysConfig, exp_config: ExpConfig, ckpt: str,
                     device: torch.device, w8: bool = False,
                     w8a8: bool = False) -> ModelSpec:
-    """Build the configured model, load ``ckpt`` (strict), and optionally
-    quantize it (w8/w8a8, the config's ``w8_scoring``/``w8a8_scoring``
-    OR'd in)."""
+    """Build the model ``sys_config`` names (a cascade's screener passes
+    its own configs), load ``ckpt`` (strict), and optionally quantize it
+    (w8/w8a8, the config's ``w8_scoring``/``w8a8_scoring`` OR'd in)."""
     spec = build_model(sys_config, exp_config, device)
     load_checkpoint_for_eval(ckpt, spec)
     print(f"Loaded checkpoint from {ckpt}")
@@ -133,4 +134,41 @@ def produce_evaluation_file(dataset, spec: ModelSpec, save_path: str,
     names, scores = score_dataset(dataset, spec, batch_size, device,
                                   on_decode_error)
     _check_score_shortfall(dataset, names)
+    _write_score_file(save_path, names, scores)
+
+
+def subset_dataset(dataset, indices) -> AudioDataset:
+    """A bare AudioDataset over a subset of ``dataset``'s trials, with its
+    duration fit and crop."""
+    return AudioDataset([dataset.trials[i] for i in indices],
+                        dataset.duration,
+                        is_random_start=dataset.is_random_start,
+                        sample_rate=dataset.sample_rate)
+
+
+def produce_evaluation_file_cascade(
+        dataset_screen, dataset_full, spec_screen: ModelSpec,
+        spec_full: ModelSpec, save_path: str, batch_size: int,
+        device: torch.device, band: float, center: float = 0.0) -> None:
+    """Two-stage cascade scoring: the screener scores every trial; the
+    trials whose screener score lies in ``|score - center| <= band`` are
+    scored again by the full model, as a second pass over a subset
+    dataset. Both datasets list the same trials in the same order (they
+    may differ in duration fit); a mismatch raises. The file keeps the
+    score-file format."""
+    names, scores = score_dataset(dataset_screen, spec_screen, batch_size,
+                                  device)
+    _check_score_shortfall(dataset_screen, names)
+    esc = [i for i, sc in enumerate(scores) if abs(sc - center) <= band]
+    if esc:
+        sub_names, sub_scores = score_dataset(
+            subset_dataset(dataset_full, esc), spec_full, batch_size, device)
+        for i, name, sc in zip(esc, sub_names, sub_scores):
+            if name != names[i]:
+                raise RuntimeError(f"cascade datasets disagree at index {i}: "
+                                   f"{names[i]!r} vs {name!r}")
+            scores[i] = sc
+    print(f"cascade: {len(esc)}/{len(names)} escalated "
+          f"({100.0 * len(esc) / max(len(names), 1):.1f}%, "
+          f"band {band} around {center})")
     _write_score_file(save_path, names, scores)

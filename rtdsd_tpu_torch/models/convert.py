@@ -9,7 +9,9 @@
   A quantized tree (``rtdsd_tpu.models.quantize.quantize_variables``: the
   transformer matmuls hold int8 ``vals`` (L, in, out) and ``scales`` (L, 1,
   out) in place of ``kernel``) gives ``vals``/``scales``/``bias`` in the
-  same layout, the buffers of ``W8Linear`` and ``W8A8Linear``.
+  same layout, the buffers of ``W8Linear`` and ``W8A8Linear``. A Conformer
+  head's Dense layers that the reference holds as 1x1 convs (the conv
+  module's pointwise layers) become Conv1d (O, I, 1).
 - :func:`load_reference_state_dict`: a reference ``.pt`` (or a state dict)
   -> the port's state dict. It folds fairseq's weight-normed positional conv
   (``weight_g``/``weight_v``, or the ``parametrizations`` spelling) into one
@@ -137,15 +139,61 @@ def _aasist(params: Mapping, stats: Mapping) -> StateDict:
     return out
 
 
+def _conv1x1(out: StateDict, name: str, p: Mapping):
+    """Dense (I, O) -> Conv1d (O, I, 1)."""
+    out[f"{name}.weight"] = _t(p["kernel"]).t().contiguous()[..., None]
+    out[f"{name}.bias"] = _t(p["bias"])
+
+
+def conformer_block(out: StateDict, bp: str, blk: Mapping, stats: Mapping
+                    ) -> None:
+    """One ``ConformerBlock``'s params and BatchNorm stats -> the
+    reference's lucidrains names under ``bp``."""
+    for ff in ("ff1", "ff2"):
+        _norm(out, f"{bp}.{ff}.fn.norm", blk[f"{ff}_norm"])
+        _lin(out, f"{bp}.{ff}.fn.fn.net.0", blk[ff]["fc1"])
+        _lin(out, f"{bp}.{ff}.fn.fn.net.3", blk[ff]["fc2"])
+    _norm(out, f"{bp}.attn.norm", blk["attn_norm"])
+    for ln in ("to_q", "to_kv", "to_out"):
+        _lin(out, f"{bp}.attn.fn.{ln}", blk["attn"][ln])
+    out[f"{bp}.attn.fn.rel_pos_emb.weight"] = _t(
+        blk["attn"]["rel_pos_emb"]["embedding"])
+    conv = blk["conv"]
+    _norm(out, f"{bp}.conv.net.0", conv["ln"])
+    _conv1x1(out, f"{bp}.conv.net.2", conv["pw1"])
+    _conv1d(out, f"{bp}.conv.net.4.conv", conv["dw"])
+    _norm(out, f"{bp}.conv.net.5", conv["bn"], stats["conv"]["bn"])
+    _conv1x1(out, f"{bp}.conv.net.7", conv["pw2"])
+    _norm(out, f"{bp}.post_norm", blk["post_norm"])
+
+
+def conformer_backend(params: Mapping, stats: Mapping) -> StateDict:
+    """``ConformerBackend`` params and BatchNorm stats -> the reference's
+    ``Model`` names."""
+    out: StateDict = {}
+    _lin(out, "LL", params["LL"])
+    _norm(out, "first_bn", params["first_bn"], stats["first_bn"])
+    conf = params["conformer"]
+    out["conformer.class_token"] = _t(conf["class_token"])
+    _lin(out, "conformer.fc5", conf["fc5"])
+    for name in sorted((k for k in conf if k.startswith("block_")),
+                       key=lambda k: int(k.split("_")[1])):
+        conformer_block(out, f"conformer.encoder_blocks.{name.split('_')[1]}",
+                        conf[name], stats["conformer"][name])
+    return out
+
+
 def from_jax_variables(variables: Mapping[str, Any], model_name: str
                        ) -> StateDict:
     """JAX ``{'params', 'batch_stats'}`` of a zoo model (numpy leaves) ->
-    the port's state dict for the same model."""
-    if "AASIST" not in model_name:
-        raise NotImplementedError(f"model {model_name!r} is not yet ported")
+    the port's state dict for the same model (``model_name`` containing
+    ``AASIST`` or not tells the two back-ends apart, as the JAX export
+    does)."""
     params = variables["params"]
+    stats = variables["batch_stats"]["backend"]
     out = _w2v(params["ssl_model"], "ssl_model.model.")
-    out.update(_aasist(params["backend"], variables["batch_stats"]["backend"]))
+    head = _aasist if "AASIST" in model_name else conformer_backend
+    out.update(head(params["backend"], stats))
     return out
 
 

@@ -1,6 +1,8 @@
 """Model registry: the port of ``rtdsd_tpu/models/registry.py``, with the
 same names and the same free-form ``kwargs`` (``num_layers``, ``order``,
-``custom_order``, ``fix_out_s1_bug``, ``fused_gat``, ``w2v``)."""
+``custom_order``, ``fix_out_s1_bug``, ``fused_gat``, ``w2v``, and for the
+Conformer family ``emb_size``, ``heads``, ``kernel_size``,
+``n_encoders``)."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import torch
 from torch import nn
 
 from rtdsd_tpu_torch.models.wav2vec2 import make_w2v_cfg, resolve_layer_indices
-from rtdsd_tpu_torch.models.zoo import XLSR_AASIST
+from rtdsd_tpu_torch.models.zoo import XLSR_AASIST, XLSR_Conformer
 
 
 @dataclasses.dataclass
@@ -22,8 +24,6 @@ class ModelSpec:
 
 
 _REGISTRY: Dict[str, Callable[..., ModelSpec]] = {}
-_NOT_PORTED = ("Model", "ConformerModel", "XLSR_Conformer", "MyModel",
-               "My_XLSR_Conformer")
 
 
 def register_model(name: str):
@@ -39,8 +39,6 @@ def list_models() -> List[str]:
 
 def get_model(name: str, dtype: torch.dtype = torch.float32,
               **kwargs) -> ModelSpec:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"model {name!r} is not yet ported")
     if name not in _REGISTRY:
         raise ValueError(f"Model {name!r} not registered; have {list_models()}")
     return _REGISTRY[name](dtype=dtype, **kwargs)
@@ -59,10 +57,40 @@ def _full(dtype=torch.float32, **kwargs) -> ModelSpec:
                      list(range(24)))
 
 
+def _layer_indices(kwargs) -> List[int]:
+    return resolve_layer_indices(24, int(kwargs.get("num_layers", 24)),
+                                 kwargs.get("order", "first"),
+                                 kwargs.get("custom_order", None))
+
+
 @register_model("My_XLSR_AASIST")
 def _pruned(dtype=torch.float32, **kwargs) -> ModelSpec:
-    indices = resolve_layer_indices(24, int(kwargs.get("num_layers", 24)),
-                                    kwargs.get("order", "first"),
-                                    kwargs.get("custom_order", None))
+    indices = _layer_indices(kwargs)
     return ModelSpec("My_XLSR_AASIST",
                      _xlsr_aasist(len(indices), dtype, kwargs), indices)
+
+
+def _conformer(name: str, indices: List[int], dtype, kwargs) -> ModelSpec:
+    module = XLSR_Conformer(
+        w2v_cfg=make_w2v_cfg(len(indices), **kwargs.get("w2v", {})),
+        emb_size=int(kwargs.get("emb_size", 144)),
+        heads=int(kwargs.get("heads", 4)),
+        kernel_size=int(kwargs.get("kernel_size", 31)),
+        n_encoders=int(kwargs.get("n_encoders", 4)), dtype=dtype)
+    return ModelSpec(name, module, indices)
+
+
+# The reference names the Conformer teacher "Model"; configs also call it
+# ConformerModel. All three names build the 24-layer model.
+@register_model("Model")
+@register_model("ConformerModel")
+@register_model("XLSR_Conformer")
+def _conformer_full(dtype=torch.float32, **kwargs) -> ModelSpec:
+    return _conformer("XLSR_Conformer", list(range(24)), dtype, kwargs)
+
+
+@register_model("MyModel")
+@register_model("My_XLSR_Conformer")
+def _conformer_pruned(dtype=torch.float32, **kwargs) -> ModelSpec:
+    return _conformer("My_XLSR_Conformer", _layer_indices(kwargs), dtype,
+                      kwargs)

@@ -46,9 +46,10 @@ class Wav2Vec2Config:
     """Same fields and defaults as the JAX package's config, so one config
     file drives both. Fields that only shape training or the TPU program
     (``scan_unroll``, ``conv_impl``, ``remat_*``, ``fast_softmax_train``)
-    have nothing to do in the port's eval forward; ``conv_segments > 1``
-    is not ported yet and raises. As in JAX, ``a8`` takes effect only
-    together with ``w8``."""
+    have nothing to do in the port's eval forward. ``conv_segments > 1``
+    runs the conv front-end over that many stride-aligned overlapping
+    segments batched along B (layer_norm extractor only). As in JAX, ``a8``
+    takes effect only together with ``w8``."""
 
     conv_layers: Tuple[Tuple[int, int, int], ...] = (
         (512, 10, 5), (512, 3, 2), (512, 3, 2), (512, 3, 2), (512, 3, 2),
@@ -80,11 +81,36 @@ class Wav2Vec2Config:
     def head_dim(self) -> int:
         return self.encoder_embed_dim // self.encoder_heads
 
+    @property
+    def total_stride(self) -> int:
+        s = 1
+        for _, _, stride in self.conv_layers:
+            s *= stride
+        return s
+
+    @property
+    def conv_receptive_field(self) -> int:
+        """The conv stack's receptive field in samples (XLSR: 400)."""
+        rf = 1
+        for _, k, s in reversed(self.conv_layers):
+            rf = (rf - 1) * s + k
+        return rf
+
     def num_frames(self, num_samples: int) -> int:
         t = num_samples
         for _, k, s in self.conv_layers:
             t = (t - k) // s + 1
         return t
+
+
+def conv_segment_geometry(cfg: Wav2Vec2Config, seg_frames: int, n_segs: int
+                          ) -> Tuple[int, int, int]:
+    """(seg_samples, seg_hop, padded_total_samples) of ``n_segs``
+    stride-aligned overlapping conv segments of ``seg_frames`` frames each."""
+    stride = cfg.total_stride
+    seg_samples = cfg.conv_receptive_field + (seg_frames - 1) * stride
+    seg_hop = seg_frames * stride
+    return seg_samples, seg_hop, (n_segs - 1) * seg_hop + seg_samples
 
 
 def make_w2v_cfg(num_layers: int = 24, **overrides) -> Wav2Vec2Config:
@@ -96,8 +122,6 @@ def make_w2v_cfg(num_layers: int = 24, **overrides) -> Wav2Vec2Config:
         kw["conv_layers"] = tuple(tuple(int(x) for x in l)
                                   for l in kw["conv_layers"])
     cfg = Wav2Vec2Config(encoder_layers=num_layers, **kw)
-    if cfg.conv_segments > 1:
-        raise NotImplementedError("conv_segments is not yet ported")
     if cfg.extractor_mode not in ("layer_norm", "group_norm"):
         raise ValueError(f"unknown extractor_mode {cfg.extractor_mode!r}")
     return cfg
@@ -386,8 +410,29 @@ class Wav2Vec2Encoder(nn.Module):
         self.post_extract_proj = nn.Linear(c, cfg.encoder_embed_dim)
         self.encoder = TransformerEncoder(cfg, dtype)
 
+    def segmented_features(self, wave: torch.Tensor) -> torch.Tensor:
+        """The conv front-end over ``cfg.conv_segments`` stride-aligned
+        overlapping segments batched along B. Exact for the layer_norm
+        extractor: frames are stride-aligned and normalised per frame."""
+        cfg = self.cfg
+        if cfg.extractor_mode != "layer_norm":
+            raise ValueError("conv_segments requires the layer_norm extractor "
+                             "(group_norm normalizes across the whole window)")
+        b, t = wave.shape
+        total, nseg = cfg.num_frames(t), cfg.conv_segments
+        seg_frames = -(-total // nseg)
+        seg_samples, seg_hop, pad_to = conv_segment_geometry(cfg, seg_frames,
+                                                             nseg)
+        wp = F.pad(wave, (0, max(0, pad_to - t)))
+        segs = wp.unfold(1, seg_samples, seg_hop)[:, :nseg]  # (B, nseg, samples)
+        f = self.feature_extractor(segs.reshape(b * nseg, seg_samples))
+        return f.reshape(b, nseg * seg_frames, f.shape[-1])[:, :total]
+
     def forward(self, wave: torch.Tensor) -> torch.Tensor:
-        feats = self.feature_extractor(wave)
+        if self.cfg.conv_segments > 1:
+            feats = self.segmented_features(wave)
+        else:
+            feats = self.feature_extractor(wave)
         x = layer_norm(feats, self.layer_norm, self.dtype)
         x = linear(x, self.post_extract_proj, self.dtype)
         return self.encoder(x)

@@ -2,8 +2,11 @@
 
 ``XLSR_AASIST`` is the XLSR front-end (under ``ssl_model.model``, as in the
 reference) followed by the AASIST back-end, whose modules sit at the top
-level of the state dict like the reference's. ``My_XLSR_AASIST`` is the same
-graph with a pruned front-end (fewer ``encoder_layers``).
+level of the state dict like the reference's. ``XLSR_Conformer`` (the
+reference's ``Model`` / ``ConformerModel``) is the same front-end followed
+by the Conformer head, its modules (``LL``, ``first_bn``, ``conformer``) at
+the top level too. The pruned students (``My_XLSR_AASIST``,
+``My_XLSR_Conformer``) are the same graphs with fewer ``encoder_layers``.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import torch
 from torch import nn
 
 from rtdsd_tpu_torch.models.aasist import AASISTBackend
+from rtdsd_tpu_torch.models.conformer import ConformerBackend, eval_only
 from rtdsd_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
 
 
@@ -21,6 +25,10 @@ class SSLModel(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
         super().__init__()
         self.model = Wav2Vec2Encoder(cfg, dtype)
+
+
+def _wave_2d(wave: torch.Tensor) -> torch.Tensor:
+    return wave[..., 0] if wave.dim() == 3 else wave
 
 
 class XLSR_AASIST(AASISTBackend):
@@ -36,9 +44,23 @@ class XLSR_AASIST(AASISTBackend):
         self.ssl_model = SSLModel(w2v_cfg, dtype)
 
     def forward(self, wave: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("training is not yet ported; call "
-                                      ".eval() on the model")
-        if wave.dim() == 3:
-            wave = wave[..., 0]
-        return super().forward(self.ssl_model.model(wave))
+        eval_only(self)
+        return super().forward(self.ssl_model.model(_wave_2d(wave)))
+
+
+class XLSR_Conformer(ConformerBackend):
+    """Wave (B, T) or (B, T, 1) -> logits (B, 2). Eval mode only."""
+
+    def __init__(self, w2v_cfg: Wav2Vec2Config = Wav2Vec2Config(),
+                 emb_size: int = 144, heads: int = 4, kernel_size: int = 31,
+                 n_encoders: int = 4, dtype: torch.dtype = torch.float32):
+        super().__init__(feat_dim=w2v_cfg.encoder_embed_dim,
+                         emb_size=emb_size, heads=heads,
+                         kernel_size=kernel_size, n_encoders=n_encoders,
+                         dtype=dtype)
+        self.w2v_cfg = w2v_cfg
+        self.ssl_model = SSLModel(w2v_cfg, dtype)
+
+    def forward(self, wave: torch.Tensor) -> torch.Tensor:
+        eval_only(self)
+        return super().forward(self.ssl_model.model(_wave_2d(wave)))

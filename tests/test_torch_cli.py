@@ -69,8 +69,6 @@ def test_cli_probes(track):
         port_main.main(base + ["--ckpt", pt, "--tracks", "BOGUS"])
     with pytest.raises(NotImplementedError, match="training"):
         port_main.main(["--config", cfg])
-    with pytest.raises(NotImplementedError, match="cascade_ckpt"):
-        port_main.main(base + ["--ckpt", pt, "--cascade_ckpt", pt])
 
 
 def test_cli_without_device_needs_a_gpu(track):
