@@ -71,6 +71,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    f. ``configs/realtime_b1.yaml``'s model kwargs (``conv_segments: 8``) on
       the XLSR_AASIST of (a): one bf16 clip's logits against the same
       weights unsegmented, within the CLI-versus-forward tolerance;
+   g. streaming: three files made from a seed under
+      ``build/chip_smoke/stream/`` (61.31 s with its tail window off the
+      320-sample grid, 2.5 s, 20 s at 22.05 kHz) through
+      ``rtdsd_tpu_torch.cli.stream`` (4 s windows, 2 s hop, batch 8,
+      ``--per_window --out``): the XLSR_AASIST of (a) naive and
+      ``--incremental``, ``--incremental --w8a8``, and the Conformer of (d)
+      ``--incremental``; launches exactly (score batches, warm-ups
+      included) x (24, 2, 4), 144 ``quantize_int8`` with ``--w8a8``, none
+      of the GAT for the Conformer and of the convstack kernels anywhere;
+      window starts as ``frame_starts`` (snapped to the frame grid under
+      ``--incremental``) give them, every score finite, naive and
+      incremental bf16 scores at the same start within the
+      CLI-versus-forward tolerance. Outside the CLI, on the 61.31 s file:
+      at batch 8, in float32 (TF32 off) and bf16, every kernel call of
+      both scorers against its plain version on the same inputs (phase 3's
+      tolerances) and each scorer's window scores with the kernels against
+      the same scorer with the plain versions (float32 within the logit
+      tolerance; bf16 printed beside the float32 scores), the two scorers
+      on the float32 model within the logit tolerance, and in bf16 their xRT
+      (five rounds in turns) and device ms by kernel class of one
+      ``window_scores`` call each and of its front-end alone;
 5. one full-width float32 batch with the kernels against the same batch
    with every kernel swapped for its plain version (TF32 off): logits agree,
    for XLSR_AASIST and for XLSR_Conformer;
@@ -83,14 +104,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    bf16 batch's six GAT calls launch (the GAT kernels and any cast or copy
    inside the calls).
 
-It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
-limit line, and as its last line ``{"ok": true, "device": {...}}``. Scratch
+It prints a ``{"kernels": [...]}`` line (``stream_launches``: the launches
+of the four runs of 4g together), the ``nvidia-smi`` name and power limit
+line, and as its last line ``{"ok": true, "device": {...}}``. Scratch
 files go to ``build/chip_smoke/`` in the checkout.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import statistics
@@ -203,8 +226,9 @@ def attention_edges(dev, g) -> None:
     their tiling, and q, k, v as strided views of one (B, T, 3 H D)
     projection. bf16: T around 16-key tiles, 64-key groups and the 256-key
     register chunk, the two-pass paths past it (also with several query
-    tiles per block at (16, 257, 16, 64)), the longest T the wrapper takes
-    at every head dim. float32: T around 32-key strips and 64-row query
+    tiles per block at (16, 257, 16, 64), and at the streaming batch's
+    (8, 199, 16, 64), where each block walks 2 of the 4 query tiles), the
+    longest T the wrapper takes at every head dim. float32: T around 32-key strips and 64-row query
     tiles, both sides of the tiled kernel's limit
     (attention.f32_tiled_max_seq), the longest T at every head dim; a
     negative and a zero scale in both."""
@@ -223,8 +247,10 @@ def attention_edges(dev, g) -> None:
         + [(2, f32_tiled_max_seq(d) + e, 4, d) for d in (16, 32, 128)
            for e in (0, 1)]
         + [(2, max_seq(d, torch.float32), 4, d) for d in HEAD_DIMS])}
-    views = {torch.bfloat16: [(16, 257, 16, 64), (B, 199, 16, 64)],
-             torch.float32: [(2, 199, 16, 64), (16, 257, 16, 64)]}
+    views = {torch.bfloat16: [(16, 257, 16, 64), (B, 199, 16, 64),
+                              (STREAM_BATCH, 199, 16, 64)],
+             torch.float32: [(2, 199, 16, 64), (16, 257, 16, 64),
+                             (STREAM_BATCH, 199, 16, 64)]}
     for dtype in (torch.bfloat16, torch.float32):
         for d in (32, 64):               # a negative and a zero scale
             q, k, v = (torch.randn((2, 50, 4, d), generator=g, device=dev,
@@ -328,8 +354,9 @@ def _gat_fns(gat, htrg: bool, x, w, bias, vecs, n1, temp):
 
 def gat_edges(dev, g) -> None:
     """Both GAT functions against their plain versions at the edges of the
-    tiled body and across the shape rule (ops/gat.py::tiled), and on the
-    model's layouts: x a bf16 (or float32) transposed view, the kernel
+    tiled body and across the shape rule (ops/gat.py::tiled), at the
+    model's four graphs for one clip and for the streaming batch of 8, and
+    on the model's layouts: x a bf16 (or float32) transposed view, the kernel
     ``att_proj.weight.t()``, bit for bit against contiguous float32 copies.
     Then the tiled body's tanh against tanhf."""
     from rtdsd_tpu_torch.ops import build, gat
@@ -340,9 +367,11 @@ def gat_edges(dev, g) -> None:
              (2, 50, 16, 64), (2, 50, 32, 32), (2, 50, 128, 64),
              (2, 30, 128, 256), (3, 13, 16, 8), (2, 50, 64, 33),
              (2, gat.max_nodes(64, 33, "rows"), 64, 33), (1, 66, 64, 64),
-             (1, 42, 64, 64)]
+             (1, 42, 64, 64), (STREAM_BATCH, 66, 64, 64),
+             (STREAM_BATCH, 42, 64, 64)]
     typed = [(2, 26, 32, 32, n1) for n1 in (0, 4, 8, 26)] + [
-        (1, 54, 64, 32, 33), (2, 19, 16, 8, 9), (2, 54, 64, 33, 33)]
+        (1, 54, 64, 32, 33), (2, 19, 16, 8, 9), (2, 54, 64, 33, 33),
+        (STREAM_BATCH, 54, 64, 32, 33), (STREAM_BATCH, 26, 32, 32, 16)]
     cases = [(False, c, None) for c in homog] + [(True, c[:4], c[4]) for c in typed]
     worst = 0.0
     for htrg, (b, n, d, do), n1 in cases:
@@ -1024,6 +1053,318 @@ def realtime_path(sd: dict, dev) -> None:
         raise RuntimeError("conv_segments logits differ from unsegmented")
 
 
+STREAM_WINDOW, STREAM_HOP, STREAM_BATCH = 64000, 32000, 8   # 4 s, 2 s at 16 kHz
+# (name, samples, rate): 61.31 s, its tail window at 916960, off the
+# 320-sample frame grid; 2.5 s, shorter than a window (tiled); 20 s at
+# 22.05 kHz (resampled to 320000 samples)
+STREAM_FILES = (("long", 980960, 16000), ("short", 40000, 16000),
+                ("resampled", 441000, 22050))
+
+
+def write_stream_audio(root: str) -> dict:
+    """The streaming files from seed 2 -> {path: samples at 16 kHz}."""
+    from rtdsd_tpu_torch.data.dataset import resample
+    from rtdsd_tpu_torch.data.io import load_audio, write_wav
+
+    rng = np.random.default_rng(2)
+    os.makedirs(root, exist_ok=True)
+    lengths = {}
+    for name, n, sr in STREAM_FILES:
+        t = np.arange(n) / sr
+        wave = (0.2 * np.sin(2 * np.pi * 300 * t) * (1 + np.sin(np.pi * t)) / 2
+                + 0.1 * rng.standard_normal(n)).astype(np.float32)
+        path = os.path.join(root, f"{name}.wav")
+        write_wav(path, wave, sr)
+        w, rate = load_audio(path)
+        lengths[path] = len(w) if rate == 16000 else len(resample(w, rate, 16000))
+    return lengths
+
+
+def stream_plan(lengths: dict, incremental: bool) -> tuple:
+    """The CLI's windows and dispatches, derived here from its rules ->
+    ({path: window starts}, score batches of the run, warm-ups included):
+    one warm-up window first; the incremental scorer snaps starts down to
+    the 320-sample grid, drops duplicates and warms each new segment
+    bucket (frames of max(T, window) in 256-frame segments, the count
+    rounded up to a multiple of 4) with a wave of the file's length."""
+    from rtdsd_tpu_torch.engine.streaming import frame_starts
+    from rtdsd_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+
+    cfg = Wav2Vec2Config()
+    starts, batches, buckets = {}, 1, set()
+    for path, t in lengths.items():
+        s = frame_starts(t, STREAM_WINDOW, STREAM_HOP)
+        if incremental:
+            s = sorted({x - x % cfg.total_stride for x in s})
+            segs = -(-cfg.num_frames(max(t, STREAM_WINDOW)) // 256)
+            bucket = -(-segs // 4) * 4
+            if bucket not in buckets:
+                buckets.add(bucket)
+                batches += -(-len(s) // STREAM_BATCH)
+        starts[path] = s
+        batches += -(-len(s) // STREAM_BATCH)
+    return starts, batches
+
+
+def run_stream(cfg: str, ckpt: str, lengths: dict, tag: str, extra=()) -> tuple:
+    """Stream the files through ``rtdsd_tpu_torch.cli.stream`` with every
+    launch counter zeroed just before -> (launches, {path: {start sample:
+    score}}, wall s). The per-window lines must sit at the planned starts
+    with finite scores, and each file must have a finite aggregate on
+    stdout and in ``--out``."""
+    from rtdsd_tpu_torch.cli import stream as cli
+
+    out = os.path.join(WORK, "stream", f"{tag}.txt")
+    paths = list(lengths)
+    want_starts, _ = stream_plan(lengths, "--incremental" in extra)
+    buf = io.StringIO()
+    reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["--config", cfg, "--ckpt", ckpt, "--audio", *paths,
+                  "--window_sec", str(STREAM_WINDOW / 16000), "--hop_sec",
+                  str(STREAM_HOP / 16000), "--batch_size", str(STREAM_BATCH),
+                  "--per_window", "--out", out, *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    with open(os.path.join(WORK, "stream", f"{tag}.stdout"), "w") as f:
+        f.write(buf.getvalue())
+    windows, files = {p: [] for p in paths}, {}
+    for line in buf.getvalue().splitlines():
+        head, *rest = line.split(" ")
+        path = head.split("#")[0]
+        if path not in windows:
+            continue
+        if "#" in head:
+            windows[path].append((head, rest[0], float(rest[1])))
+        else:
+            files[path] = float(rest[0])
+    with open(out) as f:
+        out_files = [l.split(" ")[0] for l in f.read().splitlines()]
+    scores = {}
+    for path in paths:
+        want = [(f"{path}#{i}", f"{s / 16000:.2f}")
+                for i, s in enumerate(want_starts[path])]
+        if [w[:2] for w in windows[path]] != want:
+            raise RuntimeError(f"{tag}: {path} windows {[w[:2] for w in windows[path]]}"
+                               f" != {want}")
+        vals = [w[2] for w in windows[path]]
+        if not (np.all(np.isfinite(vals)) and np.isfinite(files.get(path, np.nan))):
+            raise RuntimeError(f"{tag}: {path} has a score that is not finite")
+        scores[path] = dict(zip(want_starts[path], vals))
+    if out_files != paths:
+        raise RuntimeError(f"{tag}: --out lists {out_files}")
+    return launches, scores, wall
+
+
+def stream_path(ckpt: str, conformer_ckpt: str) -> dict:
+    """4g: the three files streamed through the CLI, 4 s windows, 2 s hop,
+    batch 8: the XLSR_AASIST of 4a in bf16 naive and ``--incremental``,
+    ``--incremental --w8a8``, and the Conformer of 4d ``--incremental``.
+    Launches exactly (score batches, warm-ups included) x (24, 2, 4), 144
+    ``quantize_int8`` with ``--w8a8``, no GAT launch for the Conformer, no
+    convstack launch; naive and incremental bf16 scores on windows that
+    start at the same sample within the CLI-versus-forward tolerance.
+    -> launches summed over the four runs."""
+    lengths = write_stream_audio(os.path.join(WORK, "stream"))
+    cfg = write_config(WORK, "bfloat16")
+    cfg_c = write_config(WORK, "bfloat16", "ConformerModel", CONFORMER_KWARGS,
+                         name="conformer")
+    total, scores = {}, {}
+    for tag, c, pt, extra, gat in (
+            ("naive", cfg, ckpt, [], True),
+            ("incremental", cfg, ckpt, ["--incremental"], True),
+            ("incremental_w8a8", cfg, ckpt, ["--incremental", "--w8a8"], True),
+            ("conformer_incremental", cfg_c, conformer_ckpt,
+             ["--incremental"], False)):
+        starts, batches = stream_plan(lengths, "--incremental" in extra)
+        launches, scores[tag], wall = run_stream(c, pt, lengths, tag, extra)
+        want = launches_want(24 * batches, batches if gat else 0,
+                             144 if "--w8a8" in extra else 0)
+        log(f"stream {tag}: {sum(map(len, starts.values()))} windows "
+            f"({', '.join(str(len(s)) for s in starts.values())}), {batches} "
+            f"score batches of {STREAM_BATCH} with the warm-ups; launches "
+            f"{launches} (want {want}); CLI wall {wall:.2f} s incl. model "
+            f"build and load")
+        if launches != want:
+            raise RuntimeError(f"kernel launches {launches} != {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    naive_starts, _ = stream_plan(lengths, False)
+    on_grid = sum(s % 320 == 0 for v in naive_starts.values() for s in v)
+    worst, shared = 0.0, 0
+    for path, naive in scores["naive"].items():
+        for start, s in naive.items():
+            if start in scores["incremental"][path]:
+                d = abs(scores["incremental"][path][start] - s)
+                worst = max(worst, d / max(1.0, abs(s)))
+                shared += 1
+    log(f"stream naive vs incremental bf16: {shared} windows at the same "
+        f"start, max |d| / max(1, |score|) {worst:.3g} (tol 0.05)")
+    if worst > 0.05 or shared != on_grid:
+        raise RuntimeError("naive and incremental streaming scores differ")
+    return total
+
+
+@contextlib.contextmanager
+def kernels_held_to_plain(worst: dict):
+    """Every kernel call the model makes also runs the kernel's plain
+    version on the same inputs and holds the output to it: attention at
+    ATTN_TOL of its dtype (and ATTN_REL_NORM in bf16), GAT at GAT_TOL.
+    ``worst`` collects {name: [calls, max |d|, shapes seen]}."""
+    from rtdsd_tpu_torch.models import aasist, wav2vec2
+    from rtdsd_tpu_torch.ops import attention, gat
+
+    def attention_close(got, want):
+        kind = "bf16" if got.dtype == torch.bfloat16 else "f32"
+        got, want = got.float(), want.float()
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL[kind][0],
+                                   atol=ATTN_TOL[kind][1])
+        rel = ((got - want).norm() / want.norm()).item()
+        if kind == "bf16" and not rel <= ATTN_REL_NORM:
+            raise AssertionError(f"mha_small_t bf16: relative norm {rel:.3g}")
+
+    def gat_close(got, want):
+        torch.testing.assert_close(got, want, rtol=GAT_TOL[0], atol=GAT_TOL[1])
+
+    def held(name, fn, ref, close):
+        def call(*args, **kwargs):
+            got, want = fn(*args, **kwargs), ref(*args, **kwargs)
+            close(got, want)
+            w = worst.setdefault(name, [0, 0.0, set()])
+            w[0] += 1
+            w[1] = max(w[1], (got.float() - want.float()).abs().max().item())
+            w[2].add(tuple(args[0].shape))
+            return got
+        return call
+
+    swaps = [(wav2vec2, "mha_small_t", attention.mha_small_t_reference,
+              attention_close),
+             (aasist, "fused_gat_aggregate", gat.fused_gat_aggregate_reference,
+              gat_close),
+             (aasist, "fused_htrg_gat_aggregate",
+              gat.fused_htrg_gat_aggregate_reference, gat_close)]
+    saved = [(m, n, getattr(m, n)) for m, n, _, _ in swaps]
+    try:
+        for m, n, ref, close in swaps:
+            setattr(m, n, held(n, getattr(m, n), ref, close))
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def stream_against_plain(sc: dict, wave, tol) -> dict:
+    """The kernels at the streaming batch of 8 on the path's own data:
+    both scorers' ``window_scores`` once with every kernel call held to its
+    plain version (kernels_held_to_plain), then again with every kernel
+    swapped for its plain version (no launch counted), window scores held
+    within ``tol`` (None: printed only) -> {scorer: (with the kernels,
+    with the plain versions)}."""
+    worst = {}
+    with kernels_held_to_plain(worst):
+        ws = {k: s.window_scores(wave) for k, s in sc.items()}
+    log("  every kernel call against its plain version on the same inputs: "
+        + "; ".join(f"{n} {c} calls at {sorted(shapes)}, max|d| {e:.3g}"
+                    for n, (c, e, shapes) in worst.items()))
+    reset_counters()
+    with plain_kernels():
+        plain = {k: s.window_scores(wave) for k, s in sc.items()}
+    if any(read_counters().values()):
+        raise RuntimeError(f"a kernel launched under plain_kernels(): "
+                           f"{read_counters()}")
+    for k in sc:
+        d = np.abs(ws[k] - plain[k])
+        log(f"  {k}: {len(d)} window scores, kernels vs plain max|d| "
+            f"{d.max():.3g}" + ("" if tol is None else f" (tol {tol})"))
+        if not np.all(np.isfinite(ws[k])) or (tol is not None and d.max() > tol):
+            raise RuntimeError(f"{k} streaming scores with the kernels differ "
+                               f"from the plain versions by {d.max()}")
+    return {k: (ws[k], plain[k]) for k in sc}
+
+
+def stream_device(sd: dict, dev, long_path: str) -> None:
+    """Outside the CLI, on the 61.31 s file, in float32 (TF32 off) and in
+    bf16: every kernel call of both scorers held to its plain version on
+    the same inputs, and each scorer's window scores with the kernels
+    against the same scorer with the plain versions, in float32 within
+    LOGIT_TOL (in bf16 printed only: beside the float32 scores, both bf16
+    paths are as far off, since 24 bf16 layers and the graph pooling's
+    ranking turn one-step differences of attention outputs into changes
+    of order 1 on random weights); the two float32 scorers against each
+    other within LOGIT_TOL on windows at the same start; then in bf16 xRT
+    (wall / audio s) of each, median [min, max] of STEADY_REPEATS rounds in
+    turns, and the device ms by kernel class of one ``window_scores`` call
+    of each and of its front-end alone (torch.profiler)."""
+    from rtdsd_tpu_torch.data.io import load_audio
+    from rtdsd_tpu_torch.engine.steps import make_score_step
+    from rtdsd_tpu_torch.engine.streaming import (IncrementalStreamingScorer,
+                                                  StreamingScorer, frame_windows)
+
+    wave, _ = load_audio(long_path)
+    audio_s = len(wave) / 16000
+    kw = dict(duration=STREAM_WINDOW, hop=STREAM_HOP, batch_size=STREAM_BATCH)
+
+    def scorers(model):
+        return {"naive": StreamingScorer(make_score_step(model), device=dev, **kw),
+                "incremental": IncrementalStreamingScorer(model, model.w2v_cfg, **kw)}
+
+    model = build_model(sd, torch.float32, dev)
+    sc = scorers(model)
+    log(f"stream float32 (TF32 off), {audio_s:.2f} s, batch {STREAM_BATCH}: "
+        f"kernels vs plain versions (tol {LOGIT_TOL})")
+    f32 = stream_against_plain(sc, wave, LOGIT_TOL)
+    ws = {k: v[0] for k, v in f32.items()}
+    starts = {k: s.window_starts(len(wave)) for k, s in sc.items()}
+    inc = dict(zip(starts["incremental"], ws["incremental"]))
+    d = [abs(inc[s] - v) for s, v in zip(starts["naive"], ws["naive"]) if s in inc]
+    log(f"stream float32 (TF32 off), {audio_s:.2f} s: {len(d)} windows at the "
+        f"same start, naive vs incremental max|d| {max(d):.3g} (tol "
+        f"{LOGIT_TOL}); |score| max {np.abs(ws['naive']).max():.3g}")
+    if not np.all(np.isfinite(ws["naive"])) or max(d) > LOGIT_TOL:
+        raise RuntimeError(f"float32 streaming scorers differ by {max(d)}")
+    del model, sc
+
+    model = build_model(sd, torch.bfloat16, dev)
+    sc = scorers(model)
+    log(f"stream bf16, {audio_s:.2f} s, batch {STREAM_BATCH}: kernels vs "
+        f"plain versions")
+    for k, (kern, plain) in stream_against_plain(sc, wave, None).items():
+        log(f"  {k} bf16 vs float32 scores (information): with the kernels "
+            f"max|d| {np.abs(kern - ws[k]).max():.3g}, with the plain "
+            f"versions {np.abs(plain - ws[k]).max():.3g}")
+    xrt = {k: [] for k in sc}
+    for _ in range(STEADY_REPEATS):
+        for k, s in sc.items():
+            t0 = time.perf_counter()
+            s.window_scores(wave)                # ends in the host readback
+            xrt[k].append((time.perf_counter() - t0) / audio_s)
+    log(f"stream bf16 xRT on {audio_s:.2f} s, median [min, max] of "
+        f"{STEADY_REPEATS} rounds in turns: " + ", ".join(
+            f"{k} {statistics.median(v):.5f} [{min(v):.5f}, {max(v):.5f}]"
+            for k, v in xrt.items()))
+    fe = model.ssl_model.model.feature_extractor
+    windows = torch.from_numpy(frame_windows(wave, STREAM_WINDOW, STREAM_HOP)).to(dev)
+    for k, fn, front in (
+            ("naive", lambda: sc["naive"].window_scores(wave), lambda: fe(windows)),
+            ("incremental", lambda: sc["incremental"].window_scores(wave),
+             lambda: sc["incremental"].conv_features(wave))):
+        rows, wall_ms = _profiled(fn)
+        busy = sum(r[1] for r in rows)
+        front_cls = by_class(_profiled(front)[0])
+        front_ms = sum(ms for ms, _ in front_cls.values())
+        log(f"stream profile, bf16 {k} window_scores on {audio_s:.2f} s: wall "
+            f"{wall_ms:.2f} ms, kernels {busy:.2f} ms (device busy "
+            f"{100 * busy / wall_ms:.1f}%), {sum(r[2] for r in rows)} launches; "
+            f"its front-end alone {front_ms:.2f} ms of kernels "
+            f"({100 * front_ms / busy:.1f}%): " + ", ".join(
+                f"{cls} {ms:.3f} ms x{n}" for cls, (ms, n) in
+                sorted(front_cls.items(), key=lambda kv: -kv[1][0])))
+        for cls, (ms, n) in sorted(by_class(rows).items(), key=lambda kv: -kv[1][0]):
+            log(f"  class {cls:22s} {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n}")
+
+
 def frontend_path(sd: dict, dev) -> dict:
     """The op fused_conv_frontend at full width on the model's front-end
     weights, against the port's unfused ConvFeatureExtractor."""
@@ -1110,6 +1451,19 @@ KERNEL_CLASSES = (("mha_small_t kernel", ("mha_small_t",)),
                   ("elementwise", ("elementwise",)))
 
 
+def by_class(rows) -> dict:
+    """Profiler rows (name, device ms, count) -> {class: (ms, count)} by
+    KERNEL_CLASSES."""
+    classes = {}
+    for key, ms, n in rows:
+        low = key.lower()
+        cls = next((c for c, subs in KERNEL_CLASSES
+                    if any(sub in low for sub in subs)), "other")
+        t, c = classes.get(cls, (0.0, 0))
+        classes[cls] = (t + ms, c + n)
+    return classes
+
+
 def _profiled(fn):
     """(kernel rows (name, device ms, count), wall ms) of one call of
     ``fn`` after a warm-up call, by torch.profiler (CUPTI)."""
@@ -1143,14 +1497,7 @@ def profile_forward(model, waves, top: int = 12, label: str = "bf16",
     log(f"profile, one {label} batch of {waves.shape[0]}: wall {wall_ms:.2f} ms, "
         f"kernels {busy:.2f} ms (device busy {100 * busy / wall_ms:.1f}%), "
         f"{sum(r[2] for r in rows)} kernel launches")
-    classes = {}
-    for key, ms, n in rows:
-        low = key.lower()
-        cls = next((c for c, subs in KERNEL_CLASSES
-                    if any(sub in low for sub in subs)), "other")
-        t, c = classes.get(cls, (0.0, 0))
-        classes[cls] = (t + ms, c + n)
-    for cls, (ms, n) in sorted(classes.items(), key=lambda kv: -kv[1][0]):
+    for cls, (ms, n) in sorted(by_class(rows).items(), key=lambda kv: -kv[1][0]):
         log(f"  class {cls:22s} {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n}")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<5d} {key[:90]}")
@@ -1301,6 +1648,8 @@ def main() -> int:
     conformer_scores = conformer_path(ckpts["conformer"])
     cascade_path(ckpts["conformer"], ckpts["screener"], conformer_scores)
     realtime_path(sd, dev)
+    stream_launches = stream_path(ckpt, ckpts["conformer"])
+    stream_device(sd, dev, os.path.join(WORK, "stream", "long.wav"))
 
     # phase 5: one f32 batch, kernels against plain versions, TF32 off
     waves = batch_waves(dev)
@@ -1389,7 +1738,7 @@ def main() -> int:
              "ln_gelu": "fused_conv_frontend, one bf16 call",
              "conv_ln_gelu_grouped": "fused_conv_frontend, one bf16 call"}
     kernels = [dict(name=k, route=route, source=src, replaces=rep,
-                    launches=launches[k],
+                    launches=launches[k], stream_launches=stream_launches[k],
                     path=paths.get(k, "bf16 CLI scoring, 2 batches"), **rec)
                for k, (rec, route, src, rep) in records.items()]
     print(json.dumps({"kernels": kernels}))

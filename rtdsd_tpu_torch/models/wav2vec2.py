@@ -386,14 +386,22 @@ class TransformerEncoder(nn.Module):
         return fastgelu.gelu(pos.transpose(1, 2),
                              fast=use_fast_gelu(self.cfg, dt))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_hiddens: bool = False):
+        """(B, T, D) -> (B, T, D); with ``return_hiddens`` also the output
+        of every layer stacked (L, B, T, D), taken before the final
+        LayerNorm, as the JAX scan's ``y``."""
         x = x + self.positional(x)
         if not self.cfg.layer_norm_first:
             x = layer_norm(x, self.layer_norm, self.dtype)
+        hiddens = []
         for layer in self.layers:
             x = layer(x)
+            if return_hiddens:
+                hiddens.append(x)
         if self.cfg.layer_norm_first:
             x = layer_norm(x, self.layer_norm, self.dtype)
+        if return_hiddens:
+            return x, torch.stack(hiddens)
         return x
 
 
@@ -428,11 +436,21 @@ class Wav2Vec2Encoder(nn.Module):
         f = self.feature_extractor(segs.reshape(b * nseg, seg_samples))
         return f.reshape(b, nseg * seg_frames, f.shape[-1])[:, :total]
 
-    def forward(self, wave: torch.Tensor) -> torch.Tensor:
-        if self.cfg.conv_segments > 1:
+    def forward(self, wave: Optional[torch.Tensor], *,
+                return_hiddens: bool = False,
+                conv_feats: Optional[torch.Tensor] = None):
+        """``conv_feats`` (B, frames, C) bypasses the conv front-end (and
+        ``conv_segments``), so ``wave`` may be ``None``: the incremental
+        streaming scorer (engine/streaming.py) computes conv features once
+        over long audio and re-enters here per window. ``return_hiddens``
+        returns ``(x, hiddens)``, hiddens (L, B, T, D) as
+        :meth:`TransformerEncoder.forward` gives them."""
+        if conv_feats is not None:
+            feats = conv_feats
+        elif self.cfg.conv_segments > 1:
             feats = self.segmented_features(wave)
         else:
             feats = self.feature_extractor(wave)
         x = layer_norm(feats, self.layer_norm, self.dtype)
         x = linear(x, self.post_extract_proj, self.dtype)
-        return self.encoder(x)
+        return self.encoder(x, return_hiddens=return_hiddens)

@@ -11,6 +11,8 @@ the top level too. The pruned students (``My_XLSR_AASIST``,
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -27,12 +29,18 @@ class SSLModel(nn.Module):
         self.model = Wav2Vec2Encoder(cfg, dtype)
 
 
-def _wave_2d(wave: torch.Tensor) -> torch.Tensor:
-    return wave[..., 0] if wave.dim() == 3 else wave
+def _features(model: nn.Module, wave: Optional[torch.Tensor],
+              conv_feats: Optional[torch.Tensor]) -> torch.Tensor:
+    """The front-end's features of ``wave`` (B, T) or (B, T, 1), or of conv
+    features (B, frames, C) computed elsewhere (``wave`` then ``None``)."""
+    if wave is not None and wave.dim() == 3:
+        wave = wave[..., 0]
+    return model.ssl_model.model(wave, conv_feats=conv_feats)
 
 
 class XLSR_AASIST(AASISTBackend):
-    """Wave (B, T) or (B, T, 1) -> logits (B, 2). Eval mode only."""
+    """Wave (B, T) or (B, T, 1), or ``None`` with ``conv_feats`` (B,
+    frames, C), -> logits (B, 2). Eval mode only."""
 
     def __init__(self, w2v_cfg: Wav2Vec2Config = Wav2Vec2Config(),
                  fix_out_s1_bug: bool = False, fused_gat: bool = False,
@@ -43,13 +51,15 @@ class XLSR_AASIST(AASISTBackend):
         self.w2v_cfg = w2v_cfg
         self.ssl_model = SSLModel(w2v_cfg, dtype)
 
-    def forward(self, wave: torch.Tensor) -> torch.Tensor:
+    def forward(self, wave: Optional[torch.Tensor], *,
+                conv_feats: Optional[torch.Tensor] = None) -> torch.Tensor:
         eval_only(self)
-        return super().forward(self.ssl_model.model(_wave_2d(wave)))
+        return super().forward(_features(self, wave, conv_feats))
 
 
 class XLSR_Conformer(ConformerBackend):
-    """Wave (B, T) or (B, T, 1) -> logits (B, 2). Eval mode only."""
+    """Wave (B, T) or (B, T, 1), or ``None`` with ``conv_feats`` (B,
+    frames, C), -> logits (B, 2). Eval mode only."""
 
     def __init__(self, w2v_cfg: Wav2Vec2Config = Wav2Vec2Config(),
                  emb_size: int = 144, heads: int = 4, kernel_size: int = 31,
@@ -61,6 +71,7 @@ class XLSR_Conformer(ConformerBackend):
         self.w2v_cfg = w2v_cfg
         self.ssl_model = SSLModel(w2v_cfg, dtype)
 
-    def forward(self, wave: torch.Tensor) -> torch.Tensor:
+    def forward(self, wave: Optional[torch.Tensor], *,
+                conv_feats: Optional[torch.Tensor] = None) -> torch.Tensor:
         eval_only(self)
-        return super().forward(self.ssl_model.model(_wave_2d(wave)))
+        return super().forward(_features(self, wave, conv_feats))
