@@ -92,6 +92,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       on the float32 model within the logit tolerance, and in bf16 their xRT
       (five rounds in turns) and device ms by kernel class of one
       ``window_scores`` call each and of its front-end alone;
+   h. serving: 32 synthetic files of 6-10 s made from a seed under
+      ``build/chip_smoke/serve/`` (every third with 2 s of exact silence)
+      served as live streams through ``rtdsd_tpu_torch.cli.serve`` (1 s
+      windows, 0.5 s hop, ``--per_window --out``): the XLSR_AASIST of (a)
+      in bf16 with ``--gate_db -50``; a cascade, the screener of (e)
+      primary and that XLSR_AASIST escalating over a band that holds about
+      half of the screener's scores; ``--w8a8``. Window starts as the
+      flush semantics give them, finite scores, launches exactly (24 or 6
+      attention, 2 + 4 GAT) x (score and escalate dispatches, the warm-up's
+      included), 144 ``quantize_int8`` with ``--w8a8``, no convstack
+      launch; gated windows, zero segments and escalations present. Outside
+      the CLI: the float32 engine (TF32 off, 32 streams) against direct
+      scoring of the same windows (max |d| within 1e-4), every kernel call
+      held to its plain version; the same pushes with the zero-segment
+      fastpath off (within 1e-4); a cascade on 8 streams held to the
+      plain versions in float32 and bf16; then bf16 engines at 128 and 512
+      streams: one tick held to the plain versions, 20 ticks paced to the
+      hop (tick p50 / p95), ``device_costs`` and device ms per tick, busy
+      share, one tick's kernels by class, the memory estimate beside
+      ``torch.cuda.max_memory_allocated()``;
 5. one full-width float32 batch with the kernels against the same batch
    with every kernel swapped for its plain version (TF32 off): logits agree,
    for XLSR_AASIST and for XLSR_Conformer;
@@ -105,7 +125,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    inside the calls).
 
 It prints a ``{"kernels": [...]}`` line (``stream_launches``: the launches
-of the four runs of 4g together), the ``nvidia-smi`` name and power limit
+of the four runs of 4g together; ``serve_launches``: of the three CLI runs
+of 4h), the ``nvidia-smi`` name and power limit
 line, and as its last line ``{"ok": true, "device": {...}}``. Scratch
 files go to ``build/chip_smoke/`` in the checkout.
 """
@@ -227,7 +248,8 @@ def attention_edges(dev, g) -> None:
     projection. bf16: T around 16-key tiles, 64-key groups and the 256-key
     register chunk, the two-pass paths past it (also with several query
     tiles per block at (16, 257, 16, 64), and at the streaming batch's
-    (8, 199, 16, 64), where each block walks 2 of the 4 query tiles), the
+    (8, 199, 16, 64), where each block walks 2 of the 4 query tiles; the
+    serving windows' (128 and 512, 49, 16, 64) in both dtypes), the
     longest T the wrapper takes at every head dim. float32: T around 32-key strips and 64-row query
     tiles, both sides of the tiled kernel's limit
     (attention.f32_tiled_max_seq), the longest T at every head dim; a
@@ -247,10 +269,11 @@ def attention_edges(dev, g) -> None:
         + [(2, f32_tiled_max_seq(d) + e, 4, d) for d in (16, 32, 128)
            for e in (0, 1)]
         + [(2, max_seq(d, torch.float32), 4, d) for d in HEAD_DIMS])}
+    serve = [(b, SERVE_FRAMES, 16, 64) for b in SERVE_TIMED]
     views = {torch.bfloat16: [(16, 257, 16, 64), (B, 199, 16, 64),
-                              (STREAM_BATCH, 199, 16, 64)],
+                              (STREAM_BATCH, 199, 16, 64)] + serve,
              torch.float32: [(2, 199, 16, 64), (16, 257, 16, 64),
-                             (STREAM_BATCH, 199, 16, 64)]}
+                             (STREAM_BATCH, 199, 16, 64)] + serve}
     for dtype in (torch.bfloat16, torch.float32):
         for d in (32, 64):               # a negative and a zero scale
             q, k, v = (torch.randn((2, 50, 4, d), generator=g, device=dev,
@@ -355,7 +378,8 @@ def _gat_fns(gat, htrg: bool, x, w, bias, vecs, n1, temp):
 def gat_edges(dev, g) -> None:
     """Both GAT functions against their plain versions at the edges of the
     tiled body and across the shape rule (ops/gat.py::tiled), at the
-    model's four graphs for one clip and for the streaming batch of 8, and
+    model's four graphs for one clip and for the streaming batch of 8, at
+    its four graphs of a 1 s serving window for a batch of 128, and
     on the model's layouts: x a bf16 (or float32) transposed view, the kernel
     ``att_proj.weight.t()``, bit for bit against contiguous float32 copies.
     Then the tiled body's tanh against tanhf."""
@@ -368,10 +392,12 @@ def gat_edges(dev, g) -> None:
              (2, 30, 128, 256), (3, 13, 16, 8), (2, 50, 64, 33),
              (2, gat.max_nodes(64, 33, "rows"), 64, 33), (1, 66, 64, 64),
              (1, 42, 64, 64), (STREAM_BATCH, 66, 64, 64),
-             (STREAM_BATCH, 42, 64, 64)]
+             (STREAM_BATCH, 42, 64, 64)] + [
+        (SERVE_TIMED[0], n, 64, 64) for n in SERVE_GAT_NODES]
     typed = [(2, 26, 32, 32, n1) for n1 in (0, 4, 8, 26)] + [
         (1, 54, 64, 32, 33), (2, 19, 16, 8, 9), (2, 54, 64, 33, 33),
-        (STREAM_BATCH, 54, 64, 32, 33), (STREAM_BATCH, 26, 32, 32, 16)]
+        (STREAM_BATCH, 54, 64, 32, 33), (STREAM_BATCH, 26, 32, 32, 16)] + [
+        (SERVE_TIMED[0], *g) for g in SERVE_HTRG_GRAPHS]
     cases = [(False, c, None) for c in homog] + [(True, c[:4], c[4]) for c in typed]
     worst = 0.0
     for htrg, (b, n, d, do), n1 in cases:
@@ -1365,6 +1391,364 @@ def stream_device(sd: dict, dev, long_path: str) -> None:
             log(f"  class {cls:22s} {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n}")
 
 
+SERVE_WINDOW, SERVE_HOP = 16000, 8000       # 1 s windows, 0.5 s hop
+SERVE_FRAMES = 49                           # conv frames of a 1 s window
+SERVE_STREAMS = 32                          # files served through the CLI
+SERVE_TIMED = (128, 512)                    # streams of the timed engines
+SERVE_TICKS = 20
+# the AASIST graphs at 49 frames (models/aasist.py): GAT_layer_S over the
+# 42 spectral nodes, GAT_layer_T over 49 // 3 = 16 frames; the typed
+# graphs after pooling by 0.5: 8 + 21 nodes (D 64, Do 32), then 4 + 10
+# (D 32, Do 32); (N, D, Do, n1)
+SERVE_GAT_NODES = (42, 16)
+SERVE_HTRG_GRAPHS = ((29, 64, 32, 8), (14, 32, 32, 4))
+SERVE_TOL = 1e-4                            # f32 engine vs direct scoring
+# build_model's arguments for the screener of 4e
+SCREENER_BUILD = {"name": "My_XLSR_AASIST", "layers": {
+    k: SCREENER_KWARGS[k] for k in ("num_layers", "order", "custom_order")}}
+
+
+def _serve_wave(rng, n: int, i: int) -> np.ndarray:
+    """A 16 kHz test stream: a slowly modulated tone in noise; every third
+    one has two seconds of exact silence from 2 s on (gated, and served by
+    the zero-segment fastpath)."""
+    t = np.arange(n) / 16000
+    wave = (0.2 * np.sin(2 * np.pi * (200 + 10 * (i % 32)) * t)
+            * (1 + np.sin(np.pi * t)) / 2 + 0.05 * rng.standard_normal(n))
+    if i % 3 == 0:
+        wave[32000:64000] = 0.0
+    return wave.astype(np.float32)
+
+
+def write_serve_audio(root: str) -> dict:
+    """SERVE_STREAMS files of 6.0-9.9 s from seed 4 -> {path: wave as
+    read back}."""
+    from rtdsd_tpu_torch.data.io import load_audio, write_wav
+
+    rng = np.random.default_rng(4)
+    os.makedirs(root, exist_ok=True)
+    waves = {}
+    for i in range(SERVE_STREAMS):
+        path = os.path.join(root, f"stream{i:02d}.wav")
+        write_wav(path, _serve_wave(rng, 96000 + 2000 * i, i), 16000)
+        waves[path] = load_audio(path)[0]
+    return waves
+
+
+def serve_starts(t: int) -> list:
+    """Window starts of a flushed stream of t samples (close_stream's
+    semantics): the hop grid, and a tail window snapped down to the
+    320-sample grid where the grid does not reach the end."""
+    last = (t - SERVE_WINDOW) // SERVE_HOP
+    starts = [w * SERVE_HOP for w in range(last + 1)]
+    tail = (t - SERVE_WINDOW) - (t - SERVE_WINDOW) % 320
+    return starts + ([tail] if tail > starts[-1] else [])
+
+
+def dispatch_sums(eng) -> dict:
+    """Score and escalate dispatches (rungs included) a run made."""
+    return {f: sum(v for k, v in eng.dispatch_counts.items()
+                   if k == f or k.startswith(f + "_"))
+            for f in ("score", "escalate")}
+
+
+def run_serve(cfg: str, ckpt: str, waves: dict, tag: str, extra=()) -> dict:
+    """Serve the files through ``rtdsd_tpu_torch.cli.serve`` (1 s windows,
+    0.5 s hop, ``--per_window --out``) with every launch counter zeroed
+    just before -> launches, the engine, the window lines, the stderr
+    lines and the wall. Every file's windows must sit at serve_starts with
+    finite scores, and its aggregate be finite, on stdout and in --out."""
+    from rtdsd_tpu_torch.cli import serve as cli
+
+    out = os.path.join(WORK, "serve", f"{tag}.txt")
+    paths = list(waves)
+    engines, build = [], cli.build_engine
+
+    def capture(args, n):
+        eng, sr = build(args, n)
+        engines.append(eng)
+        return eng, sr
+
+    buf, err = io.StringIO(), io.StringIO()
+    cli.build_engine = capture
+    reset_counters()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            cli.main(["--config", cfg, "--ckpt", ckpt, "--audio", *paths,
+                      "--window_sec", str(SERVE_WINDOW / 16000), "--hop_sec",
+                      str(SERVE_HOP / 16000), "--per_window", "--out", out,
+                      *extra])
+        torch.cuda.synchronize()
+    finally:
+        cli.build_engine = build
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    with open(os.path.join(WORK, "serve", f"{tag}.stdout"), "w") as f:
+        f.write(buf.getvalue())
+    windows, files = {p: [] for p in paths}, {}
+    for line in buf.getvalue().splitlines():
+        head, *rest = line.split(" ")
+        path = head.split("#")[0]
+        if path not in windows:
+            continue
+        if "#" in head:
+            windows[path].append((round(float(rest[0]) * 16000), float(rest[1]),
+                                  rest[2:]))
+        else:
+            files[path] = float(rest[0])
+    for path, wave in waves.items():
+        got = sorted(w[0] for w in windows[path])
+        if got != serve_starts(len(wave)):
+            raise RuntimeError(f"serve {tag}: {path} windows at {got}")
+        if not (all(np.isfinite(w[1]) for w in windows[path])
+                and np.isfinite(files.get(path, np.nan))):
+            raise RuntimeError(f"serve {tag}: {path} has a score that is "
+                               f"not finite")
+    with open(out) as f:
+        if [l.split(" ")[0] for l in f.read().splitlines()] != paths:
+            raise RuntimeError(f"serve {tag}: --out lists other files")
+    return dict(launches=launches, eng=engines[0], windows=windows,
+                err=err.getvalue().splitlines(), wall=wall)
+
+
+def serve_path(ckpt: str, screener_ckpt: str, sd: dict, screener_sd: dict,
+               dev) -> dict:
+    """4h through the CLI: (a) the XLSR_AASIST of 4a in bf16 with
+    ``--gate_db -50``, (b) a cascade, the 6-layer screener of 4e primary
+    and that XLSR_AASIST escalating over a band around the screener's
+    median score that holds about half of its scores, (c) ``--w8a8``.
+    Launches exactly: attention (24 or 6 a dispatch) and GAT (2 + 4 an
+    AASIST dispatch) over the score and escalate dispatches, the warm-up's
+    one of each included; 144 ``quantize_int8`` under ``--w8a8``; no
+    convstack launch. -> (launches summed over the three runs, {path:
+    wave})."""
+    waves = write_serve_audio(os.path.join(WORK, "serve"))
+    cfg = write_config(WORK, "bfloat16")
+    cfg_s = write_config(WORK, "bfloat16", "My_XLSR_AASIST", SCREENER_KWARGS,
+                         name="screener")
+    # the band: the screener's bf16 scores of each file's first window
+    screener = build_model(screener_sd, torch.bfloat16, dev, **SCREENER_BUILD)
+    with torch.inference_mode():
+        first = torch.from_numpy(np.stack([w[:SERVE_WINDOW]
+                                           for w in waves.values()])).to(dev)
+        s = screener(first)[:, 1].float().cpu().numpy()
+    del screener
+    center = float(np.median(s))
+    band = float(np.median(np.abs(s - center)))
+    total = {}
+    # (tag, flags, layers of the primary and of the flagship); in the
+    # cascade --ckpt is the flagship and --config its config
+    for tag, extra, layers in (
+            ("bf16_gate", ["--gate_db", "-50"], (24, 0)),
+            ("cascade", ["--cascade_ckpt", screener_ckpt, "--cascade_config",
+                         cfg_s, "--cascade_band", repr(band),
+                         "--cascade_center", repr(center)], (6, 24)),
+            ("w8a8", ["--w8a8"], (24, 0))):
+        r = run_serve(cfg, ckpt, waves, tag, extra)
+        eng, n = r["eng"], dispatch_sums(r["eng"])
+        score, esc = n["score"] + 1, (n["escalate"] + 1 if layers[1] else 0)
+        want = launches_want(layers[0] * score + layers[1] * esc, score + esc,
+                             144 if tag == "w8a8" else 0)
+        marks = [m for ws in r["windows"].values() for w in ws for m in w[2]]
+        n_win = sum(map(len, r["windows"].values()))
+        tick = next(l for l in r["err"] if "tick p50" in l)
+        log(f"serve {tag}: {n_win} windows of {SERVE_STREAMS} streams, "
+            f"{marks.count('gated')} gated, {marks.count('escalated')} "
+            f"escalated; dispatches {eng.dispatch_counts} (+1 score"
+            f"{' and 1 escalate' if layers[1] else ''} warm-up); launches "
+            f"{r['launches']} (want {want}); zero segments "
+            f"{eng.zero_segments}; {tick.strip()}; CLI wall {r['wall']:.2f} s "
+            f"incl. model build, load{' and quantization' if tag == 'w8a8' else ''}")
+        if r["launches"] != want:
+            raise RuntimeError(f"kernel launches {r['launches']} != {want}")
+        if tag == "bf16_gate" and not (marks.count("gated") and eng.zero_segments):
+            raise RuntimeError("the gate or the zero-segment fastpath did not engage")
+        if tag == "cascade" and not 0 < marks.count("escalated") < n_win:
+            raise RuntimeError(f"cascade escalated {marks.count('escalated')} "
+                               f"of {n_win} windows (band {band} around {center})")
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total, waves
+
+
+def serve_all(eng, waves: list) -> list:
+    """Push every stream one hop a tick, polling each tick; then flush and
+    drain -> [(stream index, start sample, score, escalated)]."""
+    out = []
+    handles = [eng.open_stream(i) for i in range(len(waves))]
+    for c in range(0, max(map(len, waves)), SERVE_HOP):
+        for h, w in zip(handles, waves):
+            if c < len(w):
+                eng.push(h, w[c:c + SERVE_HOP])
+        out += eng.poll()
+    for h in handles:
+        eng.close_stream(h, flush=True)
+    out += eng.drain()
+    return [(w.stream_id, w.start_sample, w.score, w.escalated) for w in out]
+
+
+def serve_direct(model, waves: list, res: list) -> np.ndarray:
+    """The engine's own oracle: each served window cut from its raw wave
+    and scored through the wave entry (make_score_step), in the engine's
+    order."""
+    from rtdsd_tpu_torch.engine.steps import make_score_step
+
+    step = make_score_step(model)
+    cuts = np.stack([waves[i][s:s + SERVE_WINDOW] for i, s, _, _ in res])
+    return np.concatenate([step(torch.from_numpy(cuts[j:j + SERVE_STREAMS]).to(
+        next(model.parameters()).device)).float().cpu().numpy()
+        for j in range(0, len(cuts), SERVE_STREAMS)])
+
+
+def log_held(what: str, worst: dict) -> None:
+    log(f"  {what}: every kernel call against its plain version on the same "
+        "inputs: " + "; ".join(f"{n} {c} calls at {sorted(shapes)}, max|d| "
+                               f"{e:.3g}" for n, (c, e, shapes) in worst.items()))
+    if set(worst) != {"mha_small_t", "fused_gat_aggregate",
+                      "fused_htrg_gat_aggregate"}:
+        raise RuntimeError(f"{what}: kernels held {sorted(worst)}")
+
+
+def serve_device(sd: dict, screener_sd: dict, dev, files: dict) -> None:
+    """4h outside the CLI. float32 (TF32 off) at SERVE_STREAMS streams:
+    the engine's window scores against direct scoring of the same windows
+    (SERVE_TOL), with every kernel call held to its plain version; the
+    same pushes with the zero-segment fastpath off (max |d| printed, held
+    to SERVE_TOL: cuDNN may pick another algorithm at another batch); a
+    cascade (the screener and the flagship, every window escalated, on 8
+    streams) held to the plain versions in float32 and bf16. bf16 at
+    SERVE_TIMED streams: the first tick held to the plain versions, then
+    SERVE_TICKS ticks paced to the hop, device_costs, device ms per tick
+    and busy share, one tick's kernels by class, the memory estimate and
+    the peak allocated."""
+    from rtdsd_tpu_torch.engine.serving import MultiStreamScorer
+
+    waves = list(files.values())
+
+    def engine(model, n, **kw):
+        return MultiStreamScorer(model, model.w2v_cfg, duration=SERVE_WINDOW,
+                                 hop=SERVE_HOP, max_streams=n, **kw)
+
+    model = build_model(sd, torch.float32, dev)
+    worst = {}
+    with kernels_held_to_plain(worst):
+        res = serve_all(engine(model, SERVE_STREAMS), waves)
+    direct = serve_direct(model, waves, res)
+    d = np.abs(np.array([r[2] for r in res]) - direct)
+    log(f"serve float32 (TF32 off), {SERVE_STREAMS} streams: {len(res)} "
+        f"windows, engine vs direct scoring max|d| {d.max():.3g} (tol "
+        f"{SERVE_TOL}); |score| max {np.abs(direct).max():.3g}")
+    log_held("serve float32", worst)
+    if not np.all(np.isfinite(direct)) or d.max() > SERVE_TOL:
+        raise RuntimeError(f"served scores differ from direct scoring by {d.max()}")
+    plain_eng = engine(model, SERVE_STREAMS, extend_fastpath=False)
+    slow = serve_all(plain_eng, waves)
+    fast_eng = engine(model, SERVE_STREAMS)
+    fast = serve_all(fast_eng, waves)
+    d = max(abs(a[2] - b[2]) for a, b in zip(fast, slow))
+    log(f"serve float32 zero-segment fastpath on vs off: {len(fast)} windows, "
+        f"{fast_eng.zero_segments} zero segments, max|d| {d:.3g} (tol "
+        f"{SERVE_TOL}; bit for bit on the CPU)")
+    if [a[:2] for a in fast] != [b[:2] for b in slow] or d > SERVE_TOL \
+            or not fast_eng.zero_segments:
+        raise RuntimeError(f"fastpath scores differ by {d}")
+    bf16 = build_model(sd, torch.bfloat16, dev)
+    for kind, flagship in (("float32", model), ("bf16", bf16)):
+        screener = build_model(screener_sd, flagship.ssl_model.model.dtype,
+                               dev, **SCREENER_BUILD)
+        worst = {}
+        with kernels_held_to_plain(worst):
+            res = serve_all(engine(screener, 8, escalate=flagship,
+                                   escalate_band=1e9), waves[:8])
+        log_held(f"serve cascade {kind}, 8 streams, {len(res)} windows "
+                 f"escalated", worst)
+        if not all(r[3] for r in res) or not np.all(np.isfinite([r[2] for r in res])):
+            raise RuntimeError("cascade windows not escalated or not finite")
+        del screener
+    del model, plain_eng, fast_eng
+    serve_timed(bf16)
+
+
+def serve_timed(model) -> None:
+    """bf16 at each of SERVE_TIMED streams: one second pushed per stream,
+    a first tick held to the plain versions, then SERVE_TICKS ticks paced
+    to the hop, each pushing a hop per stream and polling once."""
+    from rtdsd_tpu_torch.engine.serving import MultiStreamScorer, dispatch_detail_keys
+
+    hop_ms = SERVE_HOP / 16
+    model_bytes = sum(t.numel() * t.element_size()
+                      for t in model.state_dict().values())
+    rng = np.random.default_rng(5)
+    n = SERVE_WINDOW + (SERVE_TICKS + 4) * SERVE_HOP
+    bank = [_serve_wave(rng, n, i) for i in range(32)]
+    for streams in SERVE_TIMED:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        eng = MultiStreamScorer(model, model.w2v_cfg, duration=SERVE_WINDOW,
+                                hop=SERVE_HOP, max_streams=streams)
+        eng.warmup()
+        hs = [eng.open_stream(i) for i in range(streams)]
+        waves = [np.roll(bank[i % 32], 800 * i) for i in range(streams)]
+        pos = [0]
+
+        def tick():
+            c = pos[0]
+            for h, w in zip(hs, waves):
+                eng.push(h, w[c:c + SERVE_HOP])
+            pos[0] = c + SERVE_HOP
+            return eng.poll()
+
+        tick(), tick()                      # one second of audio
+        worst = {}
+        with kernels_held_to_plain(worst):
+            first = tick()
+        log_held(f"serve bf16, {streams} streams, one tick ({len(first)} "
+                 f"windows)", worst)
+        counts0 = dict(eng.dispatch_counts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ticks, start = [], time.perf_counter()
+        for k in range(SERVE_TICKS):
+            t0 = time.perf_counter()
+            got = tick()
+            ticks.append((time.perf_counter() - t0) * 1e3)
+            if len(got) != streams or not np.all(np.isfinite([w.score for w in got])):
+                raise RuntimeError(f"tick {k}: {len(got)} windows of {streams}")
+            rest = start + (k + 1) * hop_ms / 1e3 - time.perf_counter()
+            if rest > 0:
+                time.sleep(rest)
+        elapsed = (time.perf_counter() - start) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        per_tick = {k: (v - counts0[k]) / SERVE_TICKS
+                    for k, v in eng.dispatch_counts.items()}
+        costs = eng.device_costs(n=5)
+        dev_ms = sum(costs.get(k, 0.0) * v for k, v in per_tick.items())
+        rows, wall_ms = _profiled(tick)
+        busy = sum(r[1] for r in rows)
+        log(f"serve bf16, {streams} streams, {SERVE_TICKS} ticks paced to the "
+            f"{hop_ms:.0f} ms hop: tick p50 {np.percentile(ticks, 50):.2f} ms / "
+            f"p95 {np.percentile(ticks, 95):.2f} ms (max {max(ticks):.2f}); "
+            f"device_costs " + " ".join(
+                f"{k}:{costs[k]:.3f}ms" for k in dispatch_detail_keys(costs))
+            + f"; dispatches per tick " + " ".join(
+                f"{k}:{v:g}" for k, v in per_tick.items() if v)
+            + f"; device {dev_ms:.2f} ms/tick, busy {100 * dev_ms * SERVE_TICKS / elapsed:.1f}% "
+            f"of the paced run's {elapsed:.0f} ms and "
+            f"{100 * dev_ms / np.mean(ticks):.1f}% of the mean tick; "
+            f"memory: {base / 2**30:.2f} GiB allocated before the engine, "
+            f"max_memory_allocated over the paced ticks {peak / 2**30:.2f} GiB "
+            f"({(peak - base) / 2**30:.2f} above that), hbm_estimate "
+            f"{eng.hbm_estimate / 2**30:.2f} GiB (the model's parameters and "
+            f"buffers {model_bytes / 2**30:.2f} GiB of it)")
+        log(f"  one profiled tick: wall {wall_ms:.2f} ms, kernels {busy:.2f} ms "
+            f"(device busy {100 * busy / wall_ms:.1f}%), "
+            f"{sum(r[2] for r in rows)} launches")
+        for cls, (ms, cnt) in sorted(by_class(rows).items(), key=lambda kv: -kv[1][0]):
+            log(f"  class {cls:22s} {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{cnt}")
+        del eng, hs
+
+
 def frontend_path(sd: dict, dev) -> dict:
     """The op fused_conv_frontend at full width on the model's front-end
     weights, against the port's unfused ConvFeatureExtractor."""
@@ -1535,15 +1919,16 @@ def plain_kernels():
 
 
 def build_model(sd: dict, dtype: torch.dtype, dev, fast_softmax=False,
-                mode: str = "", name: str = "XLSR_AASIST"):
-    """The main-path model (or the Conformer, ``name`` "XLSR_Conformer");
-    ``mode`` "w8" / "w8a8" quantizes the weights on the card, as the CLI's
-    ``--w8`` / ``--w8a8`` do."""
+                mode: str = "", name: str = "XLSR_AASIST", layers=None):
+    """The main-path model (or the Conformer, ``name`` "XLSR_Conformer";
+    ``layers``, the registry's layer kwargs of a pruned model); ``mode``
+    "w8" / "w8a8" quantizes the weights on the card, as the CLI's ``--w8``
+    / ``--w8a8`` do."""
     from rtdsd_tpu_torch.models.convert import load_reference_state_dict
     from rtdsd_tpu_torch.models.quantize import quantize_state_dict
     from rtdsd_tpu_torch.models.registry import get_model
 
-    spec = get_model(name, dtype=dtype, fused_gat=True,
+    spec = get_model(name, dtype=dtype, fused_gat=True, **(layers or {}),
                      w2v={"fast_softmax": fast_softmax, "w8": bool(mode),
                           "a8": mode == "w8a8"})
     ref = load_reference_state_dict(sd)
@@ -1650,6 +2035,9 @@ def main() -> int:
     realtime_path(sd, dev)
     stream_launches = stream_path(ckpt, ckpts["conformer"])
     stream_device(sd, dev, os.path.join(WORK, "stream", "long.wav"))
+    serve_launches, serve_waves = serve_path(ckpt, ckpts["screener"], sd,
+                                             sds["screener"], dev)
+    serve_device(sd, sds["screener"], dev, serve_waves)
 
     # phase 5: one f32 batch, kernels against plain versions, TF32 off
     waves = batch_waves(dev)
@@ -1739,6 +2127,7 @@ def main() -> int:
              "conv_ln_gelu_grouped": "fused_conv_frontend, one bf16 call"}
     kernels = [dict(name=k, route=route, source=src, replaces=rep,
                     launches=launches[k], stream_launches=stream_launches[k],
+                    serve_launches=serve_launches[k],
                     path=paths.get(k, "bf16 CLI scoring, 2 batches"), **rec)
                for k, (rec, route, src, rep) in records.items()]
     print(json.dumps({"kernels": kernels}))
