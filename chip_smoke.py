@@ -110,8 +110,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       plain versions in float32 and bf16; then bf16 engines at 128 and 512
       streams: one tick held to the plain versions, 20 ticks paced to the
       hop (tick p50 / p95), ``device_costs`` and device ms per tick, busy
-      share, one tick's kernels by class, the memory estimate beside
-      ``torch.cuda.max_memory_allocated()``;
+      share, one tick's kernels by class, the memory estimate (JAX's
+      formula plus the port's eager term) beside
+      ``torch.cuda.max_memory_allocated()`` over the paced ticks, which it
+      must not be below, with the limit the engine read and each dispatch
+      shape's peak per row;
+   i. the socket daemon: (a) an in-process ``ServeDaemon`` on the float32
+      XLSR_AASIST (TF32 off) serving 8 of 4h's files over a Unix socket in
+      int16, four through the port's ``ServeClient`` and four through its
+      ``NativeServeClient`` (g++ at first use): every window once at the
+      flush semantics' starts, within 1e-4 of direct scoring of the
+      int16-quantized window, every kernel call held to its plain version,
+      every handle CLOSED; (b) ``rtdsd_tpu_torch.cli.daemon.main`` in this
+      process in bf16 (32 slots, stats every second) fed the 32 files of 4h
+      by 32 of the port's feeder binaries with ``--realtime``, the
+      ``--ckpt`` file replaced by seed-2 weights and SIGHUP sent mid-run,
+      SIGTERM at the end: the reload line, ``reloads=1`` and no overrun or
+      idle shed in the last stats line, every file's windows once and
+      finite, launches exactly (24, 2, 4) x the score dispatches (the
+      warm-up's included), the memory peak during the reload; (c) an
+      in-process daemon on the bf16 model at 512 streams fed by a child
+      process over 4 connections (1 s prefill, then a hop per stream every
+      500 ms for 20 hops): every window once and finite, no overrun; the
+      per-window latency from the completing push to its SCORE frame, the
+      tick wall and the memory peak beside the estimate are printed;
 5. one full-width float32 batch with the kernels against the same batch
    with every kernel swapped for its plain version (TF32 off): logits agree,
    for XLSR_AASIST and for XLSR_Conformer;
@@ -126,7 +148,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 It prints a ``{"kernels": [...]}`` line (``stream_launches``: the launches
 of the four runs of 4g together; ``serve_launches``: of the three CLI runs
-of 4h), the ``nvidia-smi`` name and power limit
+of 4h; ``daemon_launches``: of the daemon CLI run of 4i (b)), the
+``nvidia-smi`` name and power limit
 line, and as its last line ``{"ok": true, "device": {...}}``. Scratch
 files go to ``build/chip_smoke/`` in the checkout.
 """
@@ -1471,6 +1494,8 @@ def run_serve(cfg: str, ckpt: str, waves: dict, tag: str, extra=()) -> dict:
 
     buf, err = io.StringIO(), io.StringIO()
     cli.build_engine = capture
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     reset_counters()
     t0 = time.perf_counter()
     try:
@@ -1668,6 +1693,21 @@ def serve_device(sd: dict, screener_sd: dict, dev, files: dict) -> None:
         del screener
     del model, plain_eng, fast_eng
     serve_timed(bf16)
+    return bf16
+
+
+def dispatch_peaks(eng) -> dict:
+    """{dispatch shape: bytes the allocator's peak rose above what was
+    allocated just before one dispatch of that shape on scratch rows}."""
+    out = {}
+    for name, _rows, dispatch in eng._shapes():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        dispatch()
+        torch.cuda.synchronize()
+        out[name] = torch.cuda.max_memory_allocated() - base
+    return out
 
 
 def serve_timed(model) -> None:
@@ -1722,6 +1762,7 @@ def serve_timed(model) -> None:
         peak = torch.cuda.max_memory_allocated()
         per_tick = {k: (v - counts0[k]) / SERVE_TICKS
                     for k, v in eng.dispatch_counts.items()}
+        peaks = dispatch_peaks(eng)
         costs = eng.device_costs(n=5)
         dev_ms = sum(costs.get(k, 0.0) * v for k, v in per_tick.items())
         rows, wall_ms = _profiled(tick)
@@ -1741,12 +1782,432 @@ def serve_timed(model) -> None:
             f"({(peak - base) / 2**30:.2f} above that), hbm_estimate "
             f"{eng.hbm_estimate / 2**30:.2f} GiB (the model's parameters and "
             f"buffers {model_bytes / 2**30:.2f} GiB of it)")
+        log(f"  memory guard: hbm_estimate {eng.hbm_estimate / 2**30:.3f} GiB = "
+            f"JAX's formula {eng.hbm_estimate_jax / 2**30:.3f} + the eager term "
+            f"{eng.hbm_estimate_eager / 2**30:.3f}; estimate / peak "
+            f"{eng.hbm_estimate / peak:.3f}; the limit the engine read "
+            f"{eng.hbm_limit / 2**30:.2f} GiB (free + reserved); one dispatch's "
+            f"peak above what was allocated before it, per row: " + " ".join(
+                f"{k} {v / eng.rung_rows[k] / 2**20:.2f} MiB"
+                for k, v in peaks.items() if v))
+        if eng.hbm_estimate < peak:
+            raise RuntimeError(f"hbm_estimate {eng.hbm_estimate} is below the "
+                               f"peak allocated {peak} at {streams} streams")
         log(f"  one profiled tick: wall {wall_ms:.2f} ms, kernels {busy:.2f} ms "
             f"(device busy {100 * busy / wall_ms:.1f}%), "
             f"{sum(r[2] for r in rows)} launches")
         for cls, (ms, cnt) in sorted(by_class(rows).items(), key=lambda kv: -kv[1][0]):
             log(f"  class {cls:22s} {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{cnt}")
         del eng, hs
+
+
+# ------------------------------------------------------------ phase 4i
+
+DAEMON_STREAMS = 512                        # 4i (c), as 4h's largest engine
+DAEMON_CONNS = 4                            # connections of 4i (c)'s client
+DAEMON_HOPS = 20
+RF_TAIL = 80                                # receptive field beyond a frame
+
+
+def _sock_path(name: str) -> str:
+    """A socket path under WORK, relative where the absolute one would
+    pass the 107 bytes AF_UNIX takes."""
+    path = os.path.join(WORK, "daemon", name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.unlink(path)
+    return path if len(path) < 100 else os.path.relpath(path)
+
+
+class DaemonThread:
+    """A ServeDaemon of the port on its own asyncio loop in a background
+    thread, on a Unix socket."""
+
+    def __init__(self, eng, sock: str, **kw):
+        import asyncio
+        import threading
+
+        from rtdsd_tpu_torch.engine.netserve import ServeDaemon
+
+        self.daemon = ServeDaemon(eng, 16000, **kw)
+        self.loop = asyncio.new_event_loop()
+        started, self.errors = threading.Event(), []
+
+        def run():
+            asyncio.set_event_loop(self.loop)
+            try:
+                self.loop.run_until_complete(self.daemon.start(unix_path=sock))
+            except Exception as e:      # re-raised by __init__
+                self.errors.append(e)
+                return
+            finally:
+                started.set()
+            self.loop.run_forever()
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        started.wait(60)
+        if self.errors:
+            raise self.errors[0]
+
+    def stop(self) -> None:
+        import asyncio
+
+        try:
+            asyncio.run_coroutine_threadsafe(self.daemon.stop(),
+                                             self.loop).result(60)
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(60)
+            self.loop.close()
+
+
+def _check_daemon_windows(what: str, got: dict, lengths: dict) -> None:
+    """Every stream's windows at serve_starts, each once, scores finite."""
+    for key, n in lengths.items():
+        starts = sorted(w[0] for w in got.get(key, []))
+        if starts != serve_starts(n):
+            raise RuntimeError(f"{what}: {key} windows at {starts}, want "
+                               f"{serve_starts(n)}")
+        if not all(np.isfinite(w[1]) for w in got[key]):
+            raise RuntimeError(f"{what}: {key} has a score that is not finite")
+
+
+def daemon_parity(sd: dict, dev, files: dict) -> None:
+    """4i (a): an in-process daemon serving the float32 XLSR_AASIST (TF32
+    off) over int16 to 8 of 4h's files, four through the port's
+    ServeClient and four through its NativeServeClient, every kernel call
+    held to its plain version; each window once at serve_starts, within
+    SERVE_TOL of direct scoring of the int16-quantized window, and every
+    handle CLOSED."""
+    from rtdsd_tpu_torch.engine.netserve import ServeClient
+    from rtdsd_tpu_torch.engine.serving import MultiStreamScorer
+    from rtdsd_tpu_torch.native import client as native
+
+    t0 = time.perf_counter()
+    native.build()
+    model = build_model(sd, torch.float32, dev)
+    eng = MultiStreamScorer(model, model.w2v_cfg, duration=SERVE_WINDOW,
+                            hop=SERVE_HOP, max_streams=8,
+                            transport_dtype="int16")
+    eng.warmup()
+    waves = [np.clip(np.rint(w * 32768.0), -32768, 32767) / 32768.0
+             for w in list(files.values())[:8]]
+    sock = _sock_path("parity.sock")
+    served = DaemonThread(eng, sock, tick_sec=0.05)
+    worst, got, closed = {}, {}, set()
+    try:
+        with kernels_held_to_plain(worst):
+            clients = [ServeClient(unix_path=sock),
+                       native.NativeServeClient(unix_path=sock)]
+            owner = {}
+            for i, w in enumerate(waves):
+                cli = clients[i % 2]
+                h = cli.open(f"file{i}")
+                owner[h] = i
+                for c in range(0, len(w), SERVE_HOP):
+                    cli.push(h, w[c:c + SERVE_HOP].astype(np.float32))
+                cli.close(h, flush=True)
+            for cli in clients:
+                mine = {h for h in owner if owner[h] % 2 == clients.index(cli)}
+                for h, ws in cli.collect(mine).items():
+                    got[owner[h]] = ws
+                    closed.add(h)
+                cli.close_socket()
+    finally:
+        served.stop()
+    _check_daemon_windows("daemon parity", got,
+                          {i: len(w) for i, w in enumerate(waves)})
+    if len(closed) != len(waves):
+        raise RuntimeError(f"daemon parity: {len(closed)} handles CLOSED of "
+                           f"{len(waves)}")
+    res = [(i, s, v, False) for i in sorted(got) for s, v, _ in sorted(got[i])]
+    direct = serve_direct(model, [w.astype(np.float32) for w in waves], res)
+    d = np.abs(np.array([r[2] for r in res]) - direct)
+    log(f"daemon float32 (TF32 off), 8 streams over a Unix socket (4 Python, "
+        f"4 native clients, int16): {len(res)} windows once each at "
+        f"serve_starts, all 8 CLOSED; wire vs direct scoring of the "
+        f"int16-quantized windows max|d| {d.max():.3g} (tol {SERVE_TOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    log_held("daemon float32", worst)
+    if not np.all(np.isfinite(direct)) or d.max() > SERVE_TOL:
+        raise RuntimeError(f"wire scores differ from direct scoring by {d.max()}")
+
+
+def daemon_cli(ckpt: str, files: dict) -> dict:
+    """4i (b): ``rtdsd_tpu_torch.cli.daemon.main`` in this (main) thread in
+    bf16, 1 s windows, 0.5 s hop, 32 slots, stats every second, on a Unix
+    socket; the 32 files of 4h streamed by the port's feeder binary with
+    ``--realtime``; mid-run the --ckpt file is replaced by seed-2 weights
+    and this process sends itself SIGHUP, then SIGTERM once the feeders are
+    done. Launches exactly (24, 2, 4) x the score dispatches (the warm-up's
+    included) -> (launches, peak bytes allocated during the reload)."""
+    import signal
+    import threading
+
+    from rtdsd_tpu_torch.cli import daemon as cli
+    from rtdsd_tpu_torch.models.registry import get_model
+    from rtdsd_tpu_torch.native import client as native
+
+    feed = native.build_feeder()
+    root = os.path.join(WORK, "daemon")
+    model_pt, seed2 = os.path.join(root, "model.pt"), os.path.join(root, "seed2.pt")
+    with open(ckpt, "rb") as src, open(model_pt, "wb") as dst:
+        dst.write(src.read())
+    torch.save(random_reference_state_dict(get_model("XLSR_AASIST").module,
+                                           seed=2), seed2)
+    sock = _sock_path("cli.sock")
+    err_path = os.path.join(root, "daemon_cli.stderr")
+    engines, build = [], cli.build_engine
+    state = {"errors": [], "outs": {}, "reload_peak": None,
+             "serve_peak": None}
+
+    def capture(args, n):
+        eng, sr = build(args, n)
+        engines.append(eng)
+        return eng, sr
+
+    def stderr_text():
+        with open(err_path) as f:
+            return f.read()
+
+    def wait_for(cond, what, timeout):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"daemon CLI: {what}")
+            time.sleep(0.05)
+
+    def drive():
+        procs = {}
+        try:
+            wait_for(lambda: os.path.exists(sock), "no socket", 300)
+            torch.cuda.reset_peak_memory_stats()
+            procs = {p: subprocess.Popen([feed, f"unix:{sock}", p, "--realtime"],
+                                         stdout=subprocess.PIPE,
+                                         stderr=subprocess.PIPE, text=True)
+                     for p in files}
+            time.sleep(4.0)
+            state["serve_peak"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            os.replace(seed2, model_pt)
+            os.kill(os.getpid(), signal.SIGHUP)
+            wait_for(lambda: "reloaded" in stderr_text(), "no reload line", 120)
+            state["reload_peak"] = torch.cuda.max_memory_allocated()
+            for p, proc in procs.items():
+                out, err = proc.communicate(timeout=120)
+                if proc.returncode:
+                    raise RuntimeError(f"feeder {p}: rc {proc.returncode}: {err}")
+                state["outs"][p] = out
+            n = stderr_text().count("] streams=")
+            wait_for(lambda: stderr_text().count("] streams=") > n + 1,
+                     "no stats line after the feeders", 30)
+        except Exception as e:      # raised by daemon_cli after the stop
+            state["errors"].append(e)
+            for proc in procs.values():
+                proc.kill()
+        finally:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    cli.build_engine = capture
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    reset_counters()
+    t0 = time.perf_counter()
+    helper = threading.Thread(target=drive, daemon=True)
+    try:
+        with open(err_path, "w") as err, contextlib.redirect_stderr(err):
+            helper.start()
+            cli.main(["--config", write_config(WORK, "bfloat16"), "--ckpt",
+                      model_pt, "--window_sec", str(SERVE_WINDOW / 16000),
+                      "--hop_sec", str(SERVE_HOP / 16000), "--max_streams",
+                      str(SERVE_STREAMS), "--stats_every", "1", "--listen",
+                      f"unix:{sock}"])
+    finally:
+        cli.build_engine = build
+        helper.join(60)
+    launches = read_counters()
+    wall = time.perf_counter() - t0
+    text = stderr_text()
+    if state["errors"] or "Traceback" in text:
+        log(f"daemon CLI stderr, its end:\n{text[-6000:]}")
+    if state["errors"]:
+        raise state["errors"][0]
+    stats = [l for l in text.splitlines() if "] streams=" in l]
+    eng = engines[0]
+    score = dispatch_sums(eng)["score"] + 1
+    want = launches_want(24 * score, score)
+    got = {}
+    for p, out in state["outs"].items():
+        lines = out.splitlines()
+        got[p] = [(int(l.split()[1][1:]), float(l.split()[3]))
+                  for l in lines if l.startswith("window @")]
+        if lines[-1].split()[0] != p or not np.isfinite(float(lines[-1].split()[1])):
+            raise RuntimeError(f"daemon CLI: feeder of {p} ended with {lines[-1]!r}")
+    _check_daemon_windows("daemon CLI", got, {p: len(w) for p, w in files.items()})
+    last = stats[-1] if stats else ""
+    log(f"daemon CLI bf16, {len(files)} feeders --realtime: "
+        f"{sum(map(len, got.values()))} windows once each, finite; "
+        f"dispatches {eng.dispatch_counts} (+1 score warm-up); launches "
+        f"{launches} (want {want}); {len(stats)} stats lines, the last: "
+        f"{last.split('provisioning=')[0].strip()}; wall {wall:.1f} s incl. "
+        f"model build, load and the reload")
+    log("  " + next(l for l in text.splitlines() if "serving on" in l))
+    log("  " + next(l for l in text.splitlines() if "reloaded" in l))
+    log(f"  memory: {base / 2**30:.3f} GiB allocated before the daemon "
+        f"started; max_memory_allocated serving before the reload "
+        f"{state['serve_peak'] / 2**30:.3f} GiB, during the reload (ticks "
+        f"going on) {state['reload_peak'] / 2**30:.3f} GiB, the reload "
+        f"{(state['reload_peak'] - state['serve_peak']) / 2**30:.3f} GiB "
+        f"above serving; the daemon's hbm_estimate "
+        f"{eng.hbm_estimate / 2**30:.3f} GiB (the reload's second copy is "
+        f"not in it)")
+    if "reloads=1 " not in last or "overruns=0 " not in last \
+            or "idle_sheds=0 " not in last:
+        raise RuntimeError(f"daemon CLI: last stats line {last!r}")
+    if launches != want:
+        raise RuntimeError(f"kernel launches {launches} != {want}")
+    return launches, state["reload_peak"]
+
+
+CAPACITY_CLIENT = r"""
+import json, sys, threading, time
+import numpy as np
+from rtdsd_tpu_torch.engine.netserve import ServeClient
+
+sock, streams, conns, hops, out = sys.argv[1:6]
+streams, conns, hops = int(streams), int(conns), int(hops)
+HOP, DUR, TAIL = 8000, 16000, 80
+rng = np.random.default_rng(6)
+bank = [(rng.standard_normal((2 + hops) * HOP) * 0.1).astype(np.float32)
+        for _ in range(32)]
+clients = [ServeClient(unix_path=sock) for _ in range(conns)]
+handles = [[c.open(f"c{i}s{j}") for j in range(streams // conns)]
+           for i, c in enumerate(clients)]
+push_t = {h: [] for hs in handles for h in hs}
+recv, errors = {h: [] for h in push_t}, []
+
+def reader(cli, hs):
+    try:
+        pending = set(hs)
+        for ev in cli.events():
+            if ev[0] == "score":
+                recv[ev[1]].append((ev[2], ev[3], time.monotonic()))
+            elif ev[0] == "closed":
+                pending.discard(ev[1])
+                if not pending:
+                    return
+    except Exception as e:
+        errors.append(repr(e))
+
+def pusher(cli, hs, t0):
+    try:
+        for k in range(hops + 1):
+            time.sleep(max(0.0, t0 + 0.5 * k - time.monotonic()))
+            lo, hi = (0, 2 * HOP) if k == 0 else ((k + 1) * HOP, (k + 2) * HOP)
+            for h in hs:
+                cli.push(h, bank[h % 32][lo:hi])
+                push_t[h].append(time.monotonic())
+        for h in hs:
+            cli.close(h, flush=True)
+    except Exception as e:
+        errors.append(repr(e))
+
+t0 = time.monotonic() + 0.5
+readers = [threading.Thread(target=reader, args=(c, hs)) for c, hs in zip(clients, handles)]
+pushers = [threading.Thread(target=pusher, args=(c, hs, t0)) for c, hs in zip(clients, handles)]
+for t in readers + pushers:
+    t.start()
+for t in pushers + readers:
+    t.join(120)
+lat = []
+for h, evs in recv.items():
+    for start, score, t in evs:
+        last = start + DUR + TAIL - 1
+        k = 0 if last < 2 * HOP else 1 + (last - 2 * HOP) // HOP
+        if k <= hops:
+            lat.append((k, (t - push_t[h][k]) * 1e3))
+json.dump({"windows": {str(h): [e[:2] for e in evs] for h, evs in recv.items()},
+           "latency_ms": lat, "errors": errors,
+           "alive": sum(t.is_alive() for t in readers + pushers)}, open(out, "w"))
+"""
+
+
+def daemon_capacity(model, reload_peak) -> None:
+    """4i (c): an in-process daemon on the bf16 model at DAEMON_STREAMS
+    streams; a child process (its own interpreter, so that it does not
+    share the daemon's GIL) runs the port's ServeClient over DAEMON_CONNS
+    connections, prefills 1 s per stream, then pushes a hop per stream
+    every 500 ms for DAEMON_HOPS hops, and closes. Printed: the per-window
+    score latency from the push that completed a window (its last sample
+    and the 80-sample receptive-field tail) to its SCORE frame, the tick
+    wall, overruns, the memory peak beside hbm_estimate. Missing,
+    duplicated or non-finite windows and overruns raise; the latencies are
+    information."""
+    from rtdsd_tpu_torch.engine.serving import MultiStreamScorer
+
+    eng = MultiStreamScorer(model, model.w2v_cfg, duration=SERVE_WINDOW,
+                            hop=SERVE_HOP, max_streams=DAEMON_STREAMS,
+                            transport_dtype="int16")
+    eng.warmup()
+    ticks, poll = [], eng.poll
+
+    def timed_poll():
+        t = time.perf_counter()
+        out = poll()
+        torch.cuda.synchronize()
+        if out:                     # a tick that scored windows
+            ticks.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    eng.poll = timed_poll
+    sock = _sock_path("capacity.sock")
+    out = os.path.join(WORK, "daemon", "capacity.json")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    served = DaemonThread(eng, sock)
+    try:
+        child = subprocess.run(
+            [sys.executable, "-c", CAPACITY_CLIENT, sock, str(DAEMON_STREAMS),
+             str(DAEMON_CONNS), str(DAEMON_HOPS), out],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+    finally:
+        served.stop()
+    peak = torch.cuda.max_memory_allocated()
+    if child.returncode:
+        raise RuntimeError(f"capacity client rc {child.returncode}: "
+                           f"{child.stderr[-2000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    if res["errors"] or res["alive"]:
+        raise RuntimeError(f"capacity client: {res['errors']}, "
+                           f"{res['alive']} threads left")
+    n = (2 + DAEMON_HOPS) * SERVE_HOP
+    _check_daemon_windows("daemon capacity", res["windows"],
+                          {h: n for h in res["windows"]})
+    d = served.daemon
+    hop_of, lat = np.asarray(res["latency_ms"]).T
+    worst = [int(k) for k in sorted(set(hop_of[lat > 1000]))]
+    log(f"daemon bf16, {DAEMON_STREAMS} streams over {DAEMON_CONNS} Unix "
+        f"connections from a child process, 1 s prefill then a hop per "
+        f"stream every {SERVE_HOP / 16:.0f} ms for {DAEMON_HOPS} hops: "
+        f"{sum(map(len, res['windows'].values()))} windows once each, "
+        f"finite; score latency from the completing push to the SCORE frame "
+        f"p50 {np.percentile(lat, 50):.1f} ms / p95 "
+        f"{np.percentile(lat, 95):.1f} ms (p99 {np.percentile(lat, 99):.1f}, "
+        f"max {lat.max():.1f}; {len(lat)} windows, {(lat > 1000).sum()} over "
+        f"1 s, completed by push rounds {worst}; from round 3 on p50 "
+        f"{np.percentile(lat[hop_of >= 3], 50):.1f} / p95 "
+        f"{np.percentile(lat[hop_of >= 3], 95):.1f} ms); tick wall p50 {np.percentile(ticks, 50):.2f} ms "
+        f"/ p95 {np.percentile(ticks, 95):.2f} ms over {len(ticks)} ticks; "
+        f"overruns {d.overruns}, idle sheds {d.idle_sheds}; "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB, hbm_estimate "
+        f"{eng.hbm_estimate / 2**30:.3f} GiB (JAX's formula "
+        f"{eng.hbm_estimate_jax / 2**30:.3f} + eager "
+        f"{eng.hbm_estimate_eager / 2**30:.3f}); a reload's peak in (b) "
+        f"{reload_peak / 2**30:.3f} GiB at {SERVE_STREAMS} streams")
+    if d.overruns:
+        raise RuntimeError(f"daemon capacity: {d.overruns} overruns")
 
 
 def frontend_path(sd: dict, dev) -> dict:
@@ -2037,7 +2498,11 @@ def main() -> int:
     stream_device(sd, dev, os.path.join(WORK, "stream", "long.wav"))
     serve_launches, serve_waves = serve_path(ckpt, ckpts["screener"], sd,
                                              sds["screener"], dev)
-    serve_device(sd, sds["screener"], dev, serve_waves)
+    bf16_serving = serve_device(sd, sds["screener"], dev, serve_waves)
+    daemon_parity(sd, dev, serve_waves)
+    daemon_launches, reload_peak = daemon_cli(ckpt, serve_waves)
+    daemon_capacity(bf16_serving, reload_peak)
+    del bf16_serving
 
     # phase 5: one f32 batch, kernels against plain versions, TF32 off
     waves = batch_waves(dev)
@@ -2128,6 +2593,7 @@ def main() -> int:
     kernels = [dict(name=k, route=route, source=src, replaces=rep,
                     launches=launches[k], stream_launches=stream_launches[k],
                     serve_launches=serve_launches[k],
+                    daemon_launches=daemon_launches[k],
                     path=paths.get(k, "bf16 CLI scoring, 2 batches"), **rec)
                for k, (rec, route, src, rep) in records.items()]
     print(json.dumps({"kernels": kernels}))

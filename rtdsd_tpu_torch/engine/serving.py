@@ -48,10 +48,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from rtdsd_tpu_torch.device import resolve_device
-from rtdsd_tpu_torch.models.wav2vec2 import Wav2Vec2Config, conv_segment_geometry
+from rtdsd_tpu_torch.models.wav2vec2 import (Wav2Vec2Config,
+                                             conv_segment_geometry,
+                                             use_fast_gelu)
 
 __all__ = ["MultiStreamScorer", "WindowScore", "mulaw_encode", "mulaw_decode",
-           "dispatch_detail_keys", "probe_hbm_bytes", "hbm_limit_file_path"]
+           "dispatch_detail_keys", "probe_hbm_bytes", "hbm_limit_file_path",
+           "process_memory_limit", "eager_row_bytes"]
 
 _MU = 255.0  # mu-law companding constant (G.711-style continuous form)
 
@@ -89,13 +92,26 @@ def _device_kind(device: torch.device) -> str:
         else "cpu"
 
 
+def process_memory_limit(free: int, reserved: int, total: int) -> int:
+    """Device memory this process can hold, in bytes: the free memory
+    ``torch.cuda.mem_get_info`` reports plus what PyTorch's caching
+    allocator already holds (the model among it), never more than the
+    card's total. Other processes'
+    memory and the CUDA context are outside it."""
+    return min(int(total), int(free) + int(reserved))
+
+
 def _device_hbm_bytes(device: torch.device) -> Optional[int]:
-    """The device's memory in bytes, from (in order): the CUDA driver's
-    total (``torch.cuda.mem_get_info``); ``$RTDSD_HBM_GB`` (GiB); the
-    sidecar :func:`probe_hbm_bytes` records, when it names this device's
-    kind; else None, and the guard is off (the CPU)."""
+    """The memory limit the guard holds the estimate to, in bytes, from (in
+    order): on CUDA, :func:`process_memory_limit` of
+    ``torch.cuda.mem_get_info`` and ``torch.cuda.memory_reserved``;
+    ``$RTDSD_HBM_GB`` (GiB); the sidecar :func:`probe_hbm_bytes` records,
+    when it names this device's kind; else None, and the guard is off (the
+    CPU)."""
     if device.type == "cuda":
-        return int(torch.cuda.mem_get_info(device)[1])
+        free, total = torch.cuda.mem_get_info(device)
+        return process_memory_limit(free, torch.cuda.memory_reserved(device),
+                                    total)
     env_gb = os.environ.get("RTDSD_HBM_GB")
     if env_gb:
         try:
@@ -232,6 +248,33 @@ class _StreamState:
     @property
     def pending_samples(self):
         return len(self.buf) + self.chunks_len
+
+
+# f32 temporaries per activation element that the eager forward holds at its
+# peak beyond the input and output JAX's formula counts (XLA fuses them
+# away). The rational-erf GELU of (b)f16 models (ops/fastgelu.py) holds the
+# scaled argument, z, u, p, q and z * p beside its f32 input and result;
+# a float32 front-end holds the contiguous copy F.layer_norm makes of its
+# transposed conv output; a float32 transformer layer holds none.
+_GELU_TEMPS = 6
+_LN_COPY_TEMPS = 1
+
+
+def eager_row_bytes(cfg: Wav2Vec2Config, dtype: torch.dtype,
+                    samples: int = 0, frames: int = 0) -> int:
+    """Bytes of the eager forward's f32 temporaries (beyond JAX's formula)
+    at the peak of one batch row: the conv front-end over ``samples``
+    samples (its largest layer output) and the transformer's feed-forward
+    GELU over ``frames`` frames; the larger of the two, since the row
+    passes through them one after the other."""
+    fast = use_fast_gelu(cfg, dtype)
+    t, largest = samples, 0
+    for (c, k, s) in cfg.conv_layers if samples else ():
+        t = (t - k) // s + 1
+        largest = max(largest, t * c)
+    conv = largest * 4 * (_GELU_TEMPS if fast else _LN_COPY_TEMPS)
+    ffn = frames * cfg.encoder_ffn_dim * 4 * _GELU_TEMPS if fast else 0
+    return max(conv, ffn)
 
 
 def _module_bytes(module: nn.Module) -> int:
@@ -398,9 +441,10 @@ class MultiStreamScorer:
 
         # pre-flight memory estimate, before any device allocation: a
         # configuration that cannot fit raises here with numbers
-        self.hbm_estimate = self._estimate_hbm(model, cfg, escalate)
+        self._estimate(model, cfg, escalate)
         limit = hbm_limit if hbm_limit is not None \
             else _device_hbm_bytes(self.device)
+        self.hbm_limit = limit  # what the guard held the estimate to
         auto_shrank = False
         if limit and auto_batch and self.hbm_estimate > limit:
             # halve the dispatch batches until the estimate fits; each
@@ -414,18 +458,19 @@ class MultiStreamScorer:
                 # size too: keeping it full width would defeat the fit
                 self.esc_batch = min(self.esc_batch,
                                      max(1, int(np.ceil(frac * sb))))
-                self.hbm_estimate = self._estimate_hbm(model, cfg, escalate)
+                self._estimate(model, cfg, escalate)
             auto_shrank = self.hbm_estimate <= limit
         # a capped extend staggers window availability into half-full
         # score dispatches; where extend_batch was not given and the full
         # width fits, keep extend_batch = max_streams
         if extend_batch is None and self.extend_batch < max_streams:
             if limit:
-                capped, capped_est = self.extend_batch, self.hbm_estimate
+                capped = self.extend_batch
                 self.extend_batch = max_streams
-                self.hbm_estimate = self._estimate_hbm(model, cfg, escalate)
+                self._estimate(model, cfg, escalate)
                 if self.hbm_estimate > limit:
-                    self.extend_batch, self.hbm_estimate = capped, capped_est
+                    self.extend_batch = capped
+                    self._estimate(model, cfg, escalate)
             else:
                 print(f"[serving] score_batch cap also capped extend_batch "
                       f"at {self.extend_batch} because the device reports no "
@@ -531,6 +576,31 @@ class MultiStreamScorer:
         self.dispatch_counts.setdefault("extend_quarter", 0)
 
     # ---------------------------------------------------------- memory guard
+
+    def _estimate(self, model, cfg, escalate) -> None:
+        """Set the estimate at the current batch sizes:
+        ``hbm_estimate_jax`` (:meth:`_estimate_hbm`, the JAX package's
+        formula), ``hbm_estimate_eager`` (:meth:`_estimate_eager`) and their
+        sum ``hbm_estimate``, which the guard's decisions read."""
+        self.hbm_estimate_jax = self._estimate_hbm(model, cfg, escalate)
+        self.hbm_estimate_eager = self._estimate_eager(cfg, escalate)
+        self.hbm_estimate = self.hbm_estimate_jax + self.hbm_estimate_eager
+
+    def _estimate_eager(self, cfg, escalate) -> int:
+        """The port's own term (bytes): the f32 temporaries the eager
+        forward holds beyond JAX's formula (:func:`eager_row_bytes`) at the
+        peak of the largest dispatch. Dispatches run one after another, so
+        the term is the largest of extend, score and escalation rows x
+        their batch."""
+        terms = [self.extend_batch * eager_row_bytes(
+                     cfg, self.dtype, samples=self.seg_samples),
+                 self.score_batch * eager_row_bytes(
+                     cfg, self.dtype, frames=self.win_frames)]
+        if escalate is not None:
+            terms.append(self.esc_batch * eager_row_bytes(
+                escalate.w2v_cfg, escalate.ssl_model.model.dtype,
+                self.duration, self.win_frames))
+        return max(terms)
 
     def _estimate_hbm(self, model, cfg, escalate) -> int:
         """Coarse device-memory estimate (bytes): the models' parameters

@@ -44,7 +44,8 @@ def test_port_imports_nothing_of_jax():
 def test_cli_import_loads_no_jax():
     code = ("import sys, rtdsd_tpu_torch.cli.main, rtdsd_tpu_torch.ops.gat, "
             "rtdsd_tpu_torch.cli.stream, rtdsd_tpu_torch.cli.serve, "
-            "rtdsd_tpu_torch.engine.serving; "
+            "rtdsd_tpu_torch.engine.serving, rtdsd_tpu_torch.cli.daemon, "
+            "rtdsd_tpu_torch.engine.netserve, rtdsd_tpu_torch.native.client; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -451,21 +451,25 @@ def _close_estimates(port, jax_est):
 
 @pytest.mark.parametrize("kwargs", GUARD)
 def test_batch_sizing_matches_jax(models, kwargs, capsys):
-    """Batch sizes (esc_rate sizing among them) and the memory estimate,
-    with the guard off (hbm_limit=0), against JAX's engine."""
+    """Batch sizes (esc_rate sizing among them) and the JAX formula's part
+    of the memory estimate, with the guard off (hbm_limit=0), against JAX's
+    engine; the estimate the guard reads adds the port's eager term."""
     jax_eng, port_eng = _engines(models, dict(duration=DUR, hbm_limit=0,
                                               **kwargs))
     assert _sizes(port_eng) == _sizes(jax_eng)
-    _close_estimates(port_eng.hbm_estimate, jax_eng.hbm_estimate)
+    _close_estimates(port_eng.hbm_estimate_jax, jax_eng.hbm_estimate)
+    assert port_eng.hbm_estimate == (port_eng.hbm_estimate_jax
+                                     + port_eng.hbm_estimate_eager)
 
 
-def _limit_cases(models):
-    """(name, engine kwargs) whose hbm_limit sits between two JAX
-    estimates, as tests/test_serving.py sets them, and 4 KiB clear of
-    each (the port's estimate is 120 bytes above JAX's here)."""
+def _limit_cases(models, port):
+    """(name, engine kwargs) whose hbm_limit sits between two estimates of
+    the engine's own (the port's with its eager term, JAX's), as
+    tests/test_serving.py sets them, and 4 KiB clear of each (the port's
+    JAX part is 120 bytes above JAX's here)."""
     def est(**kw):
         return _engine(models, dict(duration=DUR, hbm_limit=0, **kw),
-                       False).hbm_estimate
+                       port).hbm_estimate
     full, floor = est(max_streams=8), est(max_streams=8, score_batch=1,
                                          extend_batch=1, esc_batch=1)
     capped = est(max_streams=8, score_batch=2, extend_batch=2)
@@ -491,20 +495,26 @@ def _limit_cases(models):
 
 
 def test_memory_guard_matches_jax(models, capsys):
-    """With hbm_limit injected: auto_batch's halving, the extend uncap
-    (and its notice when the limit is unknown), and the ValueError with
-    .hbm_estimate / .hbm_limit, against JAX's engine."""
-    for name, kwargs in _limit_cases(models):
-        jax_eng, port_eng = _engines(models, dict(duration=DUR, **kwargs))
+    """With hbm_limit injected, each engine's limits placed between its own
+    estimates: auto_batch's halving, the extend uncap (and its notice when
+    the limit is unknown), and the ValueError with .hbm_estimate /
+    .hbm_limit give the batch sizes of JAX's engine."""
+    cases = zip(_limit_cases(models, False), _limit_cases(models, True))
+    for (name, jax_kw), (_, port_kw) in cases:
+        jax_eng = _engine(models, dict(duration=DUR, **jax_kw), False)
+        port_eng = _engine(models, dict(duration=DUR, **port_kw), True)
         assert _sizes(port_eng) == _sizes(jax_eng), name
-        _close_estimates(port_eng.hbm_estimate, jax_eng.hbm_estimate)
-        assert port_eng.hbm_estimate <= kwargs["hbm_limit"], name
+        _close_estimates(port_eng.hbm_estimate_jax, jax_eng.hbm_estimate)
+        assert port_eng.hbm_estimate <= port_kw["hbm_limit"], name
+        assert jax_eng.hbm_estimate <= jax_kw["hbm_limit"], name
     capsys.readouterr()
     jax_eng, port_eng = _engines(models, dict(duration=DUR, max_streams=8,
                                               score_batch=2))
     assert port_eng.extend_batch == jax_eng.extend_batch == 2
     assert "capped extend_batch at 2" in capsys.readouterr().err
-    for kw in (dict(), dict(auto_batch=True)):
+    for kw, shrunk in ((dict(), dict()),
+                       (dict(auto_batch=True),
+                        dict(score_batch=1, extend_batch=1))):
         errors = []
         for port in (True, False):
             with pytest.raises(ValueError, match="GiB HBM") as e:
@@ -512,7 +522,69 @@ def test_memory_guard_matches_jax(models, capsys):
                                      hbm_limit=1000, **kw), port)
             errors.append(e.value)
         assert errors[0].hbm_limit == errors[1].hbm_limit == 1000
-        _close_estimates(errors[0].hbm_estimate, errors[1].hbm_estimate)
+        ref = _engine(models, dict(duration=DUR, max_streams=4, hbm_limit=0,
+                                   **shrunk), True)
+        assert errors[0].hbm_estimate == ref.hbm_estimate
+        _close_estimates(ref.hbm_estimate_jax, errors[1].hbm_estimate)
+
+
+# Hand arithmetic of the eager term on the tiny model (conv layers (8, 10,
+# 5), (8, 4, 4), (8, 2, 2); ffn 16; 3200-sample windows of (3200 - 45) //
+# 40 + 1 = 79 frames). An extend row is a
+# 1605-sample segment (40 frames of stride 40 plus the 45-sample receptive
+# field less one stride), whose largest conv output is layer 1's
+# (1605 - 10) // 5 + 1 = 320 frames x 8 channels; an escalated row is the
+# 3200-sample window, 639 x 8. float32 counts F.layer_norm's copy (1 f32
+# temporary an element) in the front-end and nothing in the transformer;
+# bf16 counts the rational GELU's 6, in the front-end and over the 79 x 16
+# feed-forward activations.
+EAGER_CASES = [
+    ("float32, extend", "float32", dict(max_streams=8),
+     8 * 320 * 8 * 4 * 1),
+    ("bf16, extend", "bfloat16", dict(max_streams=8), 8 * 320 * 8 * 4 * 6),
+    ("bf16, score", "bfloat16", dict(max_streams=8, extend_batch=1),
+     8 * 79 * 16 * 4 * 6),
+    ("bf16, escalation", "bfloat16",
+     dict(max_streams=8, escalate=True, esc_batch=8), 8 * 639 * 8 * 4 * 6),
+]
+
+
+@pytest.mark.parametrize("case", EAGER_CASES, ids=[c[0] for c in EAGER_CASES])
+def test_eager_term_by_hand(case):
+    """The port's eager term, the largest dispatch's rows x the f32
+    temporaries of its row, against hand arithmetic."""
+    _, dtype, kwargs, want = case
+    kwargs = dict(kwargs)
+
+    def module():
+        return registry.get_model(NAME, num_layers=2, w2v=W2V,
+                                  dtype=getattr(torch, dtype)).module.eval()
+
+    primary = module()
+    if kwargs.pop("escalate", False):
+        kwargs["escalate"] = module()
+    eng = serving.MultiStreamScorer(primary, primary.w2v_cfg, duration=DUR,
+                                    hbm_limit=0, **kwargs)
+    assert eng.hbm_estimate_eager == want
+    assert eng.hbm_estimate == eng.hbm_estimate_jax + want
+
+
+def test_process_memory_limit(monkeypatch):
+    """The CUDA limit is what the process can hold: the card's free
+    memory plus the caching allocator's reservations, at most the card's
+    total; the CUDA path of _device_hbm_bytes reads exactly that."""
+    gib = 2 ** 30
+    assert serving.process_memory_limit(60 * gib, 2 * gib, 80 * gib) \
+        == 62 * gib
+    assert serving.process_memory_limit(0, 5 * gib, 80 * gib) == 5 * gib
+    assert serving.process_memory_limit(79 * gib, 3 * gib, 80 * gib) \
+        == 80 * gib
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (40 * gib, 80 * gib))
+    monkeypatch.setattr(torch.cuda, "memory_reserved",
+                        lambda device=None: 3 * gib)
+    monkeypatch.setenv("RTDSD_HBM_GB", "7.5")
+    assert serving._device_hbm_bytes(torch.device("cuda")) == 43 * gib
 
 
 def test_probe_and_sidecar_match_jax(tmp_path, monkeypatch):
