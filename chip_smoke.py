@@ -134,6 +134,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       500 ms for 20 hops): every window once and finite, no overrun; the
       per-window latency from the completing push to its SCORE frame, the
       tick wall and the memory peak beside the estimate are printed;
+   j. training: the SSL part of the seed-0 weights written as a fairseq
+      ``.pt``; 64 train and 32 dev synthetic four-second clips with
+      ASVspoof 2019 LA protocols (seed 3) under ``build/chip_smoke/train/``;
+      ``rtdsd_tpu_torch.cli.main --config <json> --max_epoch 1`` in bf16
+      with RawBoost4, batch 32, ``fused_gat: true``, ``fast_softmax:
+      false`` and ``ssl_ckpt_path`` on that ``.pt``: launches exactly 48
+      ``mha_small_t`` (forward and remat recompute) and no GAT a train step
+      plus (24, 2, 4) a dev batch, every logged loss finite, ``last/``
+      written; then ``--is_eval --is_score --ckpt runs/last`` scores the 32
+      dev clips (finite, (24, 2, 4)), and the multi-GB state is deleted.
+      Outside the CLI on the same weights: (a) one float32 train step (TF32
+      off, PyTorch's deterministic algorithms) at batch 4 with the kernels
+      against the same step with the plain versions, same seed, gated on
+      the first 4 transformer layers at full width: loss within 1e-4,
+      every gradient and AdamW's first moment and square-rooted second
+      within 1e-3 of their tensor's max (those zero in exact arithmetic,
+      max under 1e-6 of the largest gradient, held under 1e-6 of it),
+      BatchNorm statistics within 1e-4, parameters after AdamW within 2 lr
+      (+ 1e-6 of rounding); at full depth the loss, the zero gradients and
+      the statistics are gated, and the count of other gradients past 1e-3
+      is printed for the kernels and for a step with the math SDPA in
+      place of the attention (float32's conditioning, no kernel in it);
+      (b) ``mha_small_t``'s autograd function at (32,
+      199, 16, 64), float32 and bf16, forward and dQ, dK, dV against
+      autograd through the plain version at phase 3's tolerances; (c) bf16
+      ms per train step at batch 32 (2 warm-ups, median [min, max] of 5),
+      ``max_memory_allocated``, one step's launches (48 attention, no GAT),
+      device busy share (kernel time over the profiled step's wall and
+      over the median step) and device ms by kernel class (torch.profiler);
 5. one full-width float32 batch with the kernels against the same batch
    with every kernel swapped for its plain version (TF32 off): logits agree,
    for XLSR_AASIST and for XLSR_Conformer;
@@ -148,7 +177,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 It prints a ``{"kernels": [...]}`` line (``stream_launches``: the launches
 of the four runs of 4g together; ``serve_launches``: of the three CLI runs
-of 4h; ``daemon_launches``: of the daemon CLI run of 4i (b)), the
+of 4h; ``daemon_launches``: of the daemon CLI run of 4i (b);
+``train_launches``: of the train CLI run of 4j), the
 ``nvidia-smi`` name and power limit
 line, and as its last line ``{"ok": true, "device": {...}}``. Scratch
 files go to ``build/chip_smoke/`` in the checkout.
@@ -160,6 +190,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2210,6 +2241,479 @@ def daemon_capacity(model, reload_peak) -> None:
         raise RuntimeError(f"daemon capacity: {d.overruns} overruns")
 
 
+# ------------------------------------------------------------ phase 4j
+
+TRAIN_CLIPS, DEV_CLIPS, TRAIN_BATCH = 64, 32, 32
+TRAIN_LR = 1e-6                     # configs/xlsr_aasist.yaml
+TRAIN_SEED = 1024
+PARITY_BATCH = 4                    # the float32 kernels-vs-plain step
+# float32 train step, kernels vs plain versions: the attention kernel and
+# the einsum sum in other orders (phase 3: 1e-6 relative)
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3               # of each tensor's max |g|
+# a gradient whose max is at most this share of the largest gradient's is
+# zero in exact arithmetic (a bias feeding a batch-statistics BatchNorm or
+# constant along a softmax's axis): held under it, as the CPU test holds it
+TRAIN_ZERO_TOL = 1e-6
+TRAIN_STATS_TOL = 1e-4
+# Adam's first step moves a parameter by under lr either way, so a gradient
+# near zero may flip it: 2 lr, plus float32 rounding of parameters up to 8.
+# This bound shows that lr and the decay were applied; the moments are the
+# parity check of the optimizer
+PARAM_TOL = 2 * TRAIN_LR + 1e-6
+# the gated float32 step runs on the first PARITY_LAYERS transformer layers
+# of the same weights at full width (the registry's My_XLSR_AASIST): at 24
+# layers float32 leaves hundreds of the random-weight model's gradients
+# undetermined to 1e-3 for any attention (the math SDPA's step misses the
+# plain step there as the kernels' does), which the full-depth step prints
+PARITY_LAYERS = 4
+TRAIN_STEPS_TIMED = 5
+
+
+def write_train_set(root: str) -> None:
+    """64 train and 32 dev four-second clips (sine bonafide, noise spoof,
+    from seed 3) with ASVspoof 2019 LA protocols under ``root``."""
+    from rtdsd_tpu_torch.data.io import write_wav
+
+    rng = np.random.default_rng(3)
+    os.makedirs(os.path.join(root, "audio"), exist_ok=True)
+    for prefix, n in (("LA_T", TRAIN_CLIPS), ("LA_D", DEV_CLIPS)):
+        lines = []
+        for i in range(n):
+            t = np.arange(SAMPLES) / 16000
+            bona = i % 2 == 1
+            wave = (0.3 * np.sin(2 * np.pi * (200 + 15 * i) * t) if bona
+                    else 0.2 * rng.standard_normal(SAMPLES)).astype(np.float32)
+            uid = f"{prefix}_{i:07d}"
+            write_wav(os.path.join(root, "audio", uid + ".flac"), wave, 16000)
+            lines.append(f"LA_0079 {uid} - A0{1 + i % 6} "
+                         f"{'bonafide' if bona else 'spoof'}")
+        with open(os.path.join(root, f"{prefix}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def write_train_config(root: str, ssl_pt: str) -> str:
+    """The default recipe (configs/xlsr_aasist.yaml: XLSR_AASIST, bf16,
+    RawBoost4, AdamW, batch 32, 4 s crops) with the kernels on the path."""
+    audio = os.path.join(root, "audio")
+    cfg = {"SysConfig": {
+        "model": "XLSR_AASIST", "wandb_disabled": True, "num_workers": 4,
+        "path_label_asv_spoof_2019_la_train": os.path.join(root, "LA_T.txt"),
+        "path_asv_spoof_2019_la_train": audio,
+        "path_label_asv_spoof_2019_la_dev": os.path.join(root, "LA_D.txt"),
+        "path_asv_spoof_2019_la_dev": audio,
+        "path_label_asv_spoof_2019_la_eval": os.path.join(root, "LA_D.txt"),
+        "path_asv_spoof_2019_la_eval": audio,
+        "la19_score_save_path": os.path.join(root, "scores_la19.txt"),
+        "path_to_save_model": os.path.join(root, "runs"),
+        "ssl_ckpt_path": ssl_pt, "ssl_pytree_path": ""},
+        "ExpConfig": {
+            "random_seed": TRAIN_SEED, "train_duration_sec": SAMPLES / 16000,
+            "test_duration_sec": SAMPLES / 16000, "la19_eval_random_start": False,
+            "batch_size_train": TRAIN_BATCH, "batch_size_test": TRAIN_BATCH,
+            "lr": TRAIN_LR, "weight_decay": 1e-4,
+            "allow_data_augmentation": True, "data_augmentation": ["RawBoost4"],
+            "compute_dtype": "bfloat16",
+            "kwargs": {"fused_gat": True, "w2v": {"fast_softmax": False}}}}
+    path = os.path.join(root, "train.json")
+    with open(path, "w") as f:
+        # PyYAML reads 1e-06 as a string: YAML 1.1 floats need a dot
+        f.write(json.dumps(cfg, indent=1).replace(": 1e-06", ": 1.0e-06"))
+    return path
+
+
+def train_model(sd: dict, dtype: torch.dtype, dev):
+    """The main-path XLSR_AASIST built to train (remat, kernels on)."""
+    from rtdsd_tpu_torch.models.convert import load_reference_state_dict
+    from rtdsd_tpu_torch.models.registry import get_model
+
+    spec = get_model("XLSR_AASIST", dtype=dtype, remat=True, fused_gat=True,
+                     w2v={"fast_softmax": False})
+    spec.module.to(dev).load_state_dict(load_reference_state_dict(sd),
+                                        strict=True)
+    return spec.module.train()
+
+
+def train_cli(sd: dict, dev) -> dict:
+    """4j: the SSL part of the seed-0 weights as a fairseq ``.pt``, then
+    ``cli.main --max_epoch 1`` on the synthetic set (2 train steps, 1 dev
+    batch) and ``--is_eval --is_score --ckpt runs/last`` on the dev clips,
+    each with the counters zeroed just before."""
+    from rtdsd_tpu_torch.cli import main as cli
+
+    root = os.path.join(WORK, "train")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    write_train_set(root)
+    prefix = "ssl_model.model."
+    ssl_pt = os.path.join(root, "xlsr_fairseq_seed0.pt")
+    torch.save({"model": {k[len(prefix):]: v for k, v in sd.items()
+                          if k.startswith(prefix)}}, ssl_pt)
+    cfg = write_train_config(root, ssl_pt)
+    log(f"4j: {TRAIN_CLIPS} train + {DEV_CLIPS} dev clips and the fairseq "
+        f"SSL .pt written in {time.perf_counter() - t0:.1f} s")
+    reset_counters()
+    t0 = time.perf_counter()
+    cli.main(["--config", cfg, "--max_epoch", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    steps_, dev_batches = TRAIN_CLIPS // TRAIN_BATCH, -(-DEV_CLIPS // TRAIN_BATCH)
+    want = launches_want(48 * steps_ + 24 * dev_batches, dev_batches)
+    with open(os.path.join(root, "runs", "metrics.jsonl")) as f:
+        recs = [json.loads(l) for l in f]
+    losses = [r["Loss"] for r in recs if "Loss" in r]
+    last = os.path.join(root, "runs", "last")
+    log(f"4j train CLI (bf16, RawBoost4, batch {TRAIN_BATCH}, 1 epoch: "
+        f"{steps_} steps + {dev_batches} dev batch): launches {launches} "
+        f"(want {want}: 48 attention a step, forward and remat recompute, no "
+        f"GAT; 24, 2, 4 a dev batch); losses {losses}; dev "
+        f"{[(r['Dev Loss'], r['Dev Acc']) for r in recs if 'Dev Loss' in r]}; "
+        f"last/ {sorted(os.listdir(last))}; wall {wall:.1f} s incl. build, "
+        f"SSL load and the checkpoint write")
+    if launches != want:
+        raise RuntimeError(f"train launches {launches} != {want}")
+    if len(losses) != steps_ or not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"train losses {losses}")
+    if sorted(os.listdir(last)) != ["meta.json", "state.pt"]:
+        raise RuntimeError(f"last/ holds {os.listdir(last)}")
+    reset_counters()
+    cli.main(["--config", cfg, "--is_eval", "--is_score", "--ckpt", last,
+              "--tracks", "LA19"])
+    torch.cuda.synchronize()
+    score_launches = read_counters()
+    with open(os.path.join(root, "scores_la19.txt")) as f:
+        lines = f.read().splitlines()
+    vals = np.array([float(l.split(" ")[1]) for l in lines])
+    want = launches_want(24 * dev_batches, dev_batches)
+    log(f"4j scoring from last/: {len(lines)} scores, finite "
+        f"{int(np.isfinite(vals).sum())}; launches {score_launches} "
+        f"(want {want})")
+    if len(lines) != DEV_CLIPS or not np.all(np.isfinite(vals)) \
+            or score_launches != want:
+        raise RuntimeError("4j scoring from the trained checkpoint failed")
+    shutil.rmtree(os.path.join(root, "runs"))
+    os.remove(ssl_pt)
+    return launches
+
+
+def _train_step_outputs(model, waves, labels, lr) -> dict:
+    """One train step (RawBoost4, seed TRAIN_SEED) on a fresh AdamW: the
+    loss, the gradients, the state dict after the step and AdamW's moments
+    (the first, and the square root of the second, both linear in |g|)."""
+    from rtdsd_tpu_torch.engine import steps
+
+    state = steps.TrainState(model, steps.make_optimizer(model, lr, 1e-4))
+    step = steps.make_train_step(rawboost_algo=4)
+    loss = float(step(state, waves, labels, TRAIN_SEED)["loss"])
+    params = dict(model.named_parameters())
+    out = {"loss": loss,
+           "grads": {n: p.grad.detach().clone() for n, p in params.items()},
+           "state": {k: v.detach().clone()
+                     for k, v in model.state_dict().items()},
+           "mu": {n: state.optimizer.state[p]["exp_avg"].clone()
+                  for n, p in params.items()},
+           "sqrt_nu": {n: state.optimizer.state[p]["exp_avg_sq"].sqrt()
+                       for n, p in params.items()}}
+    del state
+    return out
+
+
+def sdpa_math(q, k, v, scale=None):
+    """The yardstick attention of 4j (a): PyTorch's math SDPA, the same
+    function summed in another order (timed and used nowhere else)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel(SDPBackend.MATH):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            scale=scale).transpose(1, 2)
+
+
+@contextlib.contextmanager
+def attention_swapped(fn):
+    from rtdsd_tpu_torch.models import wav2vec2
+
+    saved = wav2vec2.mha_small_t
+    wav2vec2.mha_small_t = fn
+    try:
+        yield
+    finally:
+        wav2vec2.mha_small_t = saved
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (cuDNN's too), so that atomics in
+    a backward pass (the pools' gather, convolution weight gradients) give
+    no run-to-run noise; the warnings of ops that have no deterministic
+    version are recorded and printed once each."""
+    import warnings
+
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+        for msg in sorted({str(w.message).split(".")[0][:120] for w in caught}):
+            log(f"  deterministic mode: {msg}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def held_per_tensor(got: dict, want: dict, rel: float) -> dict:
+    """Each tensor of ``got`` against ``want``: within ``rel`` of its max
+    |want|, or, where that max is at most TRAIN_ZERO_TOL of the largest
+    one's (zero in exact arithmetic), under TRAIN_ZERO_TOL of the largest.
+    -> {"zero": names, "gap": {name: |d| over its bound's scale}, "over":
+    {name: that share} for the tensors past their bound}."""
+    top = max(float(w.abs().max()) for w in want.values())
+    zero, gap, over = [], {}, {}
+    for n, w in want.items():
+        scale = float(w.abs().max())
+        if scale <= TRAIN_ZERO_TOL * top:
+            zero.append(n)
+            gap[n] = float(got[n].abs().max()) / top
+            if gap[n] > TRAIN_ZERO_TOL:
+                over[n] = gap[n]
+        else:
+            gap[n] = float((got[n] - w).abs().max()) / scale
+            if gap[n] > rel:
+                over[n] = gap[n]
+    return {"zero": zero, "gap": gap, "over": over}
+
+
+def _parity_runs(model, ref: dict, waves, labels, names) -> tuple:
+    """The train step from ``ref`` once for each of ``names`` ("kernels",
+    "plain", "again": plain repeated, "sdpa": math SDPA attention), under
+    deterministic algorithms; -> (runs, the kernels run's launches)."""
+    ctxs = {"kernels": contextlib.nullcontext, "plain": plain_kernels,
+            "again": plain_kernels,
+            "sdpa": lambda: attention_swapped(sdpa_math)}
+    runs, launches = {}, None
+    with deterministic():
+        for name in names:
+            model.load_state_dict(ref, strict=True)
+            reset_counters()
+            with ctxs[name]():
+                runs[name] = _train_step_outputs(model, waves, labels,
+                                                 TRAIN_LR)
+            if name == "kernels":
+                launches = read_counters()
+    return runs, launches
+
+
+def _stats_and_params(got: dict, want: dict) -> tuple:
+    stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    d_stats = max(float((got[k] - want[k]).abs().max()) for k in stats)
+    d_params = max(float((got[k] - want[k]).abs().max()) for k in want
+                   if k not in stats and not k.endswith("num_batches_tracked"))
+    return d_stats, d_params
+
+
+def _worst(gap: dict, names, n: int = 3) -> str:
+    return ", ".join(f"{k} {gap[k]:.3g}" for k in
+                     sorted(names, key=lambda k: -gap[k])[:n])
+
+
+def train_parity(sd: dict, dev) -> None:
+    """4j (a): one float32 train step (TF32 off, deterministic algorithms)
+    at batch 4 with the kernels against the same step with the plain
+    versions, same seed. Gated, on the first PARITY_LAYERS layers of the
+    weights at full width: loss, every gradient and AdamW's moments within
+    TRAIN_GRAD_TOL of their tensor's max (the zero rule of
+    ``held_per_tensor`` for those zero in exact arithmetic), BatchNorm
+    statistics, parameters within 2 lr. At full depth: the loss, the zero
+    gradients and the statistics are gated; how many other gradients lie
+    past TRAIN_GRAD_TOL is printed, for the kernels and for a step with
+    the math SDPA in place of the attention (no kernel), which measures
+    float32's conditioning of the random-weight model."""
+    from rtdsd_tpu_torch.models.convert import load_reference_state_dict
+    from rtdsd_tpu_torch.models.registry import get_model
+    from rtdsd_tpu_torch.models.wav2vec2 import select_layers
+
+    waves, labels = train_batch(dev, PARITY_BATCH)
+    ref = load_reference_state_dict(sd)
+    failed = []
+
+    runs, launches = _parity_runs(train_model(sd, torch.float32, dev), ref,
+                                  waves, labels, ("kernels", "plain", "sdpa"))
+    torch.cuda.empty_cache()
+    plain = runs["plain"]
+    held = {k: held_per_tensor(runs[k]["grads"], plain["grads"],
+                               TRAIN_GRAD_TOL) for k in ("kernels", "sdpa")}
+    real = [n for n in plain["grads"] if n not in held["kernels"]["zero"]]
+    zero_over = {n: g for n, g in held["kernels"]["over"].items()
+                 if n in held["kernels"]["zero"]}
+    d_loss = abs(runs["kernels"]["loss"] - plain["loss"])
+    d_stats, d_params = _stats_and_params(runs["kernels"]["state"],
+                                          plain["state"])
+    log(f"4j (a) f32 train step at full depth (24 layers), batch "
+        f"{PARITY_BATCH} (TF32 off, deterministic algorithms): launches "
+        f"{launches}; loss kernels {runs['kernels']['loss']:.7f}, plain "
+        f"{plain['loss']:.7f}, math SDPA {runs['sdpa']['loss']:.7f} (tol "
+        f"{TRAIN_LOSS_TOL}); {len(held['kernels']['zero'])} gradients zero "
+        f"in exact arithmetic (max under {TRAIN_ZERO_TOL:g} of the largest), "
+        f"held under it: worst {_worst(held['kernels']['gap'], held['kernels']['zero'], 1)}; "
+        f"BN statistics max|d| {d_stats:.3g} (tol {TRAIN_STATS_TOL}); "
+        f"parameters after AdamW max|d| {d_params:.3g}")
+    for k, what in (("kernels", "kernels"), ("sdpa", "math SDPA, no kernel")):
+        past = [n for n in real if n in held[k]["over"]]
+        log(f"  full depth, not gated ({what}): {len(past)} of {len(real)} "
+            f"other gradients past {TRAIN_GRAD_TOL} of their max; worst "
+            f"{_worst(held[k]['gap'], real)}; in the graph head (past the "
+            f"SSL and the residual encoder) worst "
+            f"{_worst(held[k]['gap'], [n for n in real if not n.startswith(('ssl_model', 'encoder.', 'LL', 'first_bn.'))], 1)}")
+    log(f"  zero in exact arithmetic: {sorted(held['kernels']['zero'])}")
+    if launches != launches_want(48):
+        failed.append(f"full-depth launches {launches}")
+    if d_loss > TRAIN_LOSS_TOL or zero_over or d_stats > TRAIN_STATS_TOL:
+        failed.append(f"full depth: loss {d_loss:.3g}, zero gradients "
+                      f"{zero_over}, statistics {d_stats:.3g}")
+    del runs, plain, held
+    torch.cuda.empty_cache()
+
+    spec = get_model("My_XLSR_AASIST", dtype=torch.float32, remat=True,
+                     num_layers=PARITY_LAYERS, fused_gat=True,
+                     w2v={"fast_softmax": False})
+    model = spec.module.to(dev).train()
+    runs, launches = _parity_runs(
+        model, select_layers(ref, spec.layer_indices), waves, labels,
+        ("kernels", "plain", "again"))
+    del model
+    torch.cuda.empty_cache()
+    plain, got = runs["plain"], runs["kernels"]
+    held = {k: held_per_tensor(got[k], plain[k], TRAIN_GRAD_TOL)
+            for k in ("grads", "mu", "sqrt_nu")}
+    g = held["grads"]
+    real = [n for n in g["gap"] if n not in g["zero"]]
+    again = max(float((runs["again"]["grads"][n] - t).abs().max())
+                for n, t in plain["grads"].items())
+    d_loss = abs(got["loss"] - plain["loss"])
+    d_stats, d_params = _stats_and_params(got["state"], plain["state"])
+    log(f"4j (a) f32 train step, layers {spec.layer_indices} at full width, "
+        f"batch {PARITY_BATCH} (gated): launches {launches}; loss kernels "
+        f"{got['loss']:.7f}, plain {plain['loss']:.7f} (tol "
+        f"{TRAIN_LOSS_TOL}); plain repeated max|d| of gradients {again:.3g}; "
+        f"{len(real)} gradients held to {TRAIN_GRAD_TOL} of their max: worst "
+        f"{_worst(g['gap'], real)}; {len(g['zero'])} zero in exact "
+        f"arithmetic held under {TRAIN_ZERO_TOL:g} of the largest: worst "
+        f"{_worst(g['gap'], g['zero'], 1)}; AdamW moments held so: first "
+        f"worst {_worst(held['mu']['gap'], held['mu']['gap'], 1)}, square "
+        f"root of the second worst "
+        f"{_worst(held['sqrt_nu']['gap'], held['sqrt_nu']['gap'], 1)}; BN "
+        f"statistics max|d| {d_stats:.3g} (tol {TRAIN_STATS_TOL}); parameters "
+        f"after AdamW max|d| {d_params:.3g} (2 lr + 1e-6 = {PARAM_TOL:g})")
+    log(f"  zero in exact arithmetic: {sorted(g['zero'])}")
+    over = {k: h["over"] for k, h in held.items() if h["over"]}
+    if launches != launches_want(2 * PARITY_LAYERS):
+        failed.append(f"{PARITY_LAYERS}-layer launches {launches}")
+    if (d_loss > TRAIN_LOSS_TOL or over or d_stats > TRAIN_STATS_TOL
+            or d_params > PARAM_TOL):
+        failed.append(f"{PARITY_LAYERS} layers: loss {d_loss:.3g}, past "
+                      f"their bounds {over}, statistics {d_stats:.3g}, "
+                      f"parameters {d_params:.3g}")
+    if failed:
+        raise RuntimeError("4j (a): the kernels' train step disagrees with "
+                           f"the plain one: {failed}")
+
+
+def attention_grad_check(dev) -> dict:
+    """4j (b): ``mha_small_t``'s autograd function at the train step's
+    shape against autograd through ``mha_small_t_reference``, float32 and
+    bf16, forward and dQ, dK, dV at phase 3's tolerances."""
+    from rtdsd_tpu_torch.ops import attention
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for kind, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v, do = (torch.randn((TRAIN_BATCH, 199, 16, 64), generator=g,
+                                   device=dev).to(dt) for _ in range(4))
+        res = []
+        for fn in (attention.mha_small_t, attention.mha_small_t_reference):
+            xs = [t.clone().requires_grad_() for t in (q, k, v)]
+            y = fn(*xs)
+            y.backward(do)
+            res.append([y.detach()] + [t.grad for t in xs])
+        rtol, atol = ATTN_TOL[kind]
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(*res)]
+        out[kind] = errs
+        for a, b, what in zip(*res, ("out", "dq", "dk", "dv")):
+            torch.testing.assert_close(a, b, rtol=rtol, atol=atol,
+                                       msg=f"mha_small_t {kind} {what}")
+    log(f"4j (b) mha_small_t autograd at ({TRAIN_BATCH}, 199, 16, 64) vs "
+        f"autograd through the plain version, max|d| (out, dQ, dK, dV): "
+        + "; ".join(f"{k} {', '.join(f'{e:.3g}' for e in v)}"
+                    for k, v in out.items()))
+    return out
+
+
+def train_batch(dev, n: int):
+    from rtdsd_tpu_torch.config import load_yaml_config
+    from rtdsd_tpu_torch.data.dataset import ASVspoof2019LA
+
+    root = os.path.join(WORK, "train")
+    sys_cfg, exp_cfg = load_yaml_config(os.path.join(root, "train.json"))
+    ds = ASVspoof2019LA(sys_cfg, exp_cfg, is_train=True)
+    waves = np.stack([ds.get(i)[1] for i in range(n)])
+    labels = np.array([ds.trials[i].label for i in range(n)])
+    return (torch.from_numpy(waves).to(dev),
+            torch.from_numpy(labels).to(dev).long())
+
+
+def train_timed(sd: dict, dev, card: str) -> None:
+    """4j (c): bf16 train steps at batch 32 (RawBoost4, the kernels on):
+    ms a step, the allocator's peak, one step's launches, device busy share
+    and device ms by kernel class."""
+    from rtdsd_tpu_torch.engine import steps
+
+    waves, labels = train_batch(dev, TRAIN_BATCH)
+    model = train_model(sd, torch.bfloat16, dev)
+    state = steps.TrainState(model, steps.make_optimizer(model, TRAIN_LR, 1e-4))
+    step = steps.make_train_step(rawboost_algo=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(2):
+        step(state, waves, labels, TRAIN_SEED)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TRAIN_STEPS_TIMED):
+        t0 = time.perf_counter()
+        step(state, waves, labels, TRAIN_SEED)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    reset_counters()
+    step(state, waves, labels, TRAIN_SEED)
+    launches = read_counters()
+    rows, wall_ms = _profiled(lambda: step(state, waves, labels, TRAIN_SEED),
+                              inference=False)
+    busy = sum(r[1] for r in rows)
+    median = statistics.median(times)
+    log(f"4j (c) bf16 train step, batch {TRAIN_BATCH} (RawBoost4, remat, "
+        f"fused_gat, fast_softmax off), {card}: {median:.1f} ms median "
+        f"[{min(times):.1f}, {max(times):.1f}] of {TRAIN_STEPS_TIMED} after 2 "
+        f"warm-ups; max_memory_allocated {peak / 2**30:.2f} GiB "
+        f"({base / 2**30:.2f} before the first step: parameters); one step's "
+        f"launches {launches}; profiled step: kernels {busy:.1f} ms, "
+        f"{sum(r[2] for r in rows)} kernel launches, wall {wall_ms:.1f} ms "
+        f"(device busy {100 * busy / wall_ms:.1f}% under the profiler, "
+        f"{100 * busy / median:.1f}% of the median unprofiled step)")
+    for cls, (ms, n) in sorted(by_class(rows).items(), key=lambda kv: -kv[1][0]):
+        log(f"  class {cls:22s} {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n}")
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:10]:
+        log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<5d} {key[:90]}")
+    if launches != launches_want(48):
+        raise RuntimeError(f"4j (c): a train step launched {launches}")
+    del state, model
+    torch.cuda.empty_cache()
+
+
 def frontend_path(sd: dict, dev) -> dict:
     """The op fused_conv_frontend at full width on the model's front-end
     weights, against the port's unfused ConvFeatureExtractor."""
@@ -2290,7 +2794,8 @@ def steady_ms_per_clip(model, waves) -> float:
 KERNEL_CLASSES = (("mha_small_t kernel", ("mha_small_t",)),
                   ("GAT kernels", ("gat_tiled_kernel", "gat_rows_kernel")),
                   ("GEMM", ("gemm", "nvjet", "xmma", "cublas")),
-                  ("convolution", ("conv", "fprop", "cudnn")),
+                  ("convolution", ("conv", "fprop", "dgrad", "wgrad",
+                                   "cudnn")),
                   ("norm/softmax/reduce", ("norm", "softmax", "reduce")),
                   ("copy/cast", ("copy", "cat")),
                   ("elementwise", ("elementwise",)))
@@ -2309,13 +2814,14 @@ def by_class(rows) -> dict:
     return classes
 
 
-def _profiled(fn):
+def _profiled(fn, inference: bool = True):
     """(kernel rows (name, device ms, count), wall ms) of one call of
-    ``fn`` after a warm-up call, by torch.profiler (CUPTI)."""
+    ``fn`` after a warm-up call, by torch.profiler (CUPTI); ``inference``
+    runs both under ``torch.inference_mode``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
+    with torch.inference_mode(inference):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2503,6 +3009,11 @@ def main() -> int:
     daemon_launches, reload_peak = daemon_cli(ckpt, serve_waves)
     daemon_capacity(bf16_serving, reload_peak)
     del bf16_serving
+    torch.cuda.empty_cache()
+    train_launches = train_cli(sd, dev)
+    train_parity(sd, dev)
+    attention_grad_check(dev)
+    train_timed(sd, dev, card)
 
     # phase 5: one f32 batch, kernels against plain versions, TF32 off
     waves = batch_waves(dev)
@@ -2594,6 +3105,7 @@ def main() -> int:
                     launches=launches[k], stream_launches=stream_launches[k],
                     serve_launches=serve_launches[k],
                     daemon_launches=daemon_launches[k],
+                    train_launches=train_launches[k],
                     path=paths.get(k, "bf16 CLI scoring, 2 batches"), **rec)
                for k, (rec, route, src, rep) in records.items()]
     print(json.dumps({"kernels": kernels}))

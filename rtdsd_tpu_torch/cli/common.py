@@ -1,5 +1,5 @@
-"""CLI plumbing for scoring: the port of the eval part of
-``rtdsd_tpu/cli/common.py``."""
+"""CLI plumbing: the port of ``rtdsd_tpu/cli/common.py`` (model and train
+state construction, checkpoint loading, scoring)."""
 
 from __future__ import annotations
 
@@ -11,10 +11,15 @@ import torch
 from rtdsd_tpu_torch.config import ExpConfig, SysConfig
 from rtdsd_tpu_torch.data.dataset import AudioDataset
 from rtdsd_tpu_torch.data.loader import EvalLoader
-from rtdsd_tpu_torch.engine.steps import make_score_step
+from rtdsd_tpu_torch.engine import checkpoint
+from rtdsd_tpu_torch.engine.steps import (TrainState, make_optimizer,
+                                          make_score_step, reinit_params)
 from rtdsd_tpu_torch.models.convert import load_reference_state_dict
+from rtdsd_tpu_torch.models.convert_fairseq import encoder_state_dict
 from rtdsd_tpu_torch.models.quantize import quantize_state_dict
 from rtdsd_tpu_torch.models.registry import ModelSpec, get_model
+from rtdsd_tpu_torch.models.wav2vec2 import select_layers
+from rtdsd_tpu_torch.models.zoo import init_weights
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -26,22 +31,59 @@ def resolve_dtype(exp_config: ExpConfig) -> torch.dtype:
 
 def build_model(sys_config: SysConfig, exp_config: ExpConfig,
                 device: torch.device, name: Optional[str] = None,
-                kwargs: Optional[dict] = None) -> ModelSpec:
-    """The configured model, in eval mode, on ``device``."""
+                kwargs: Optional[dict] = None, train: bool = False
+                ) -> ModelSpec:
+    """The configured model on ``device``, in eval mode, or with ``train``
+    in train mode with its encoder layers rematerialised (as the JAX
+    package builds a model to train)."""
     spec = get_model(name or sys_config.model, dtype=resolve_dtype(exp_config),
+                     remat=train,
                      **(kwargs if kwargs is not None else exp_config.kwargs))
-    spec.module.to(device).eval()
+    spec.module.to(device).train(train)
     return spec
 
 
+def init_state(spec: ModelSpec, sys_config: SysConfig, exp_config: ExpConfig,
+               seed: int) -> TrainState:
+    """Initialise ``spec.module`` with the JAX package's initialisers from
+    ``seed``, load the SSL checkpoint ``ssl_ckpt_path`` into its encoder
+    (a fairseq ``.pt`` or a reference-named one; the layers a pruned
+    student keeps are selected from it) and re-initialise the configured
+    SSL parameters after it; then the optimizer."""
+    model = spec.module
+    init_weights(model, seed)
+    ssl_src = sys_config.ssl_pytree_path or sys_config.ssl_ckpt_path
+    if sys_config.ssl_pytree_path or (ssl_src and os.path.isdir(ssl_src)):
+        raise NotImplementedError(
+            f"{ssl_src}: SSL init from an HF snapshot or the JAX package's "
+            "pytree directory is not yet ported (ROADMAP Queue 1, item 7); "
+            "set ssl_ckpt_path to a fairseq .pt and ssl_pytree_path to ''")
+    if ssl_src:
+        sd = select_layers(encoder_state_dict(ssl_src), spec.layer_indices,
+                           prefix="")
+        model.ssl_model.model.load_state_dict(sd, strict=True)
+        if spec.reinit_patterns:
+            reinit_params(model.ssl_model, spec.reinit_patterns, seed ^ 0x5eed)
+    opt = make_optimizer(model, exp_config.lr, exp_config.weight_decay,
+                         spec.freeze_patterns, spec.unfreeze_patterns,
+                         optimizer=exp_config.optimizer,
+                         mu_dtype=exp_config.adam_mu_dtype)
+    return TrainState(model, opt)
+
+
 def load_checkpoint_for_eval(ckpt: str, spec: ModelSpec) -> None:
-    """Load a reference ``.pt`` into ``spec.module`` (strict). The JAX
-    package's checkpoint directories are not readable by the port yet."""
+    """Load a reference ``.pt`` or the model of one of the port's
+    checkpoint directories into ``spec.module`` (strict). The JAX package's
+    checkpoint directories are not readable by the port yet."""
+    if checkpoint.is_checkpoint(ckpt):
+        spec.module.load_state_dict(checkpoint.load_model_state(ckpt),
+                                    strict=True)
+        return
     if os.path.isdir(ckpt):
         raise NotImplementedError(
             f"{ckpt}: checkpoint directories of the JAX package are not yet "
-            "readable by the port; export a reference .pt with "
-            "rtdsd_tpu.models.export_reference")
+            "readable by the port (ROADMAP Queue 1, item 7d); export a "
+            "reference .pt with rtdsd_tpu.models.export_reference")
     spec.module.load_state_dict(load_reference_state_dict(ckpt), strict=True)
 
 

@@ -1,5 +1,10 @@
-"""Scoring CLI of the port, with the scoring flags of ``rtdsd_tpu.cli.main``:
+"""Train / evaluate / score CLI of the port, with the flags of
+``rtdsd_tpu.cli.main``:
 
+    python -m rtdsd_tpu_torch.cli.main --config cfg.yaml [--max_epoch N] \\
+        [--ckpt runs/last] [--device cuda|cpu]                    # train
+    python -m rtdsd_tpu_torch.cli.main --config cfg.yaml --accuracy \\
+        --ckpt runs/best                                  # test accuracy
     python -m rtdsd_tpu_torch.cli.main --config cfg.yaml --is_eval \\
         --is_score --ckpt model.pt --tracks LA19,LA21 [--comment tag] \\
         [--w8 | --w8a8] [--device cuda|cpu]
@@ -23,8 +28,18 @@ screener takes its model, kwargs, duration and quantization flags from
 ``--cascade_config`` (default: ``--config``) and its dataset paths from
 ``--config``; trials with ``|screener score - center| <= band`` are scored
 again by ``--ckpt``'s model. ``--score_all_folder_path`` scores each entry
-with the comment ``{comment}_{name}`` (or ``name``). Training and eval
-without ``--is_score`` are not ported yet and raise.
+with the comment ``{comment}_{name}`` (or ``name``). ``--ckpt`` also takes
+the port's own checkpoint directories (``engine/checkpoint.py``).
+
+Training (no ``--is_eval``) trains the XLSR_AASIST family on the ASVspoof
+2019 LA train set, a dev pass each epoch, as the JAX CLI does: a
+``best_LA_epoch{e}_{loss}_{acc}`` checkpoint when the dev loss improves
+with accuracy above 95 or a new best accuracy above 95 comes in another
+epoch, the rolling ``last`` checkpoint every epoch, and early stopping on
+the dev loss with ``kwargs.early_stop_patience``. ``restore_checkpoint``
+(or ``--ckpt``) resumes from a checkpoint directory (its full state) or
+starts from a reference ``.pt``'s weights. ``--accuracy`` only runs the
+test pass (the DF21 eval set when configured, else dev).
 """
 
 from __future__ import annotations
@@ -33,16 +48,24 @@ import argparse
 import os
 import sys
 
-from rtdsd_tpu_torch.cli.common import (load_eval_model,
+from rtdsd_tpu_torch.cli.common import (build_model, init_state,
+                                        load_checkpoint_for_eval,
+                                        load_eval_model,
                                         produce_evaluation_file,
                                         produce_evaluation_file_cascade,
                                         tag_score_path)
 from rtdsd_tpu_torch.config import load_yaml_config
-from rtdsd_tpu_torch.data.dataset import (ASVSpoof5, ASVspoof2019LA_eval,
+from rtdsd_tpu_torch.data.dataset import (ASVSpoof5, ASVspoof2019LA,
+                                          ASVspoof2019LA_eval,
                                           ASVspoof2021DF_eval,
                                           ASVspoof2021LA_eval, FakeOrReal,
                                           InTheWild)
+from rtdsd_tpu_torch.data.loader import DataLoader
 from rtdsd_tpu_torch.device import resolve_device
+from rtdsd_tpu_torch.engine import checkpoint
+from rtdsd_tpu_torch.engine.trainer import Trainer
+from rtdsd_tpu_torch.utils.logging import Logger
+from rtdsd_tpu_torch.utils.metrics import EarlyStopping
 
 
 def parse_args(argv=None):
@@ -53,6 +76,10 @@ def parse_args(argv=None):
     p.add_argument("--comment", default=None, type=str,
                    help="suffix appended to score file names")
     p.add_argument("--is_score", action="store_true", default=False)
+    p.add_argument("--accuracy", action="store_true", default=False,
+                   help="only the test pass of a model (--ckpt)")
+    p.add_argument("--max_epoch", type=int, default=None,
+                   help="override ExpConfig.max_epoch")
     p.add_argument("--score_all_folder_path", type=str, default=None,
                    help="score every directory or .pt of this folder")
     p.add_argument("--tracks", type=str, default="DF21",
@@ -79,7 +106,8 @@ def parse_args(argv=None):
                         "threshold, ~0 for bonafide-logit scores)")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu, for every model of the run "
-                        "(scoring, cascade and folder scoring alike)")
+                        "(training, scoring, cascade and folder scoring "
+                        "alike)")
     return p.parse_args(argv)
 
 
@@ -98,6 +126,91 @@ def validate_tracks(tracks) -> None:
         if track not in TRACK_DATASETS:
             raise ValueError(f"Invalid track {track!r}; "
                              f"have {sorted(TRACK_DATASETS)}")
+
+
+TRAINABLE = ("XLSR_AASIST", "My_XLSR_AASIST")
+
+
+def run_train(args, sys_config, exp_config, device):
+    """The JAX CLI's train path on one device (see the module docstring)."""
+    if sys_config.model not in TRAINABLE:
+        raise NotImplementedError(
+            f"training {sys_config.model!r} is not yet ported (ROADMAP Queue "
+            f"1, item 7: Conformer train mode); the port trains {TRAINABLE}")
+    seed = exp_config.random_seed
+    save_dir = sys_config.path_to_save_model
+    logger = Logger(sys_config, metrics_path=os.path.join(save_dir,
+                                                          "metrics.jsonl"))
+    logger.print(f"device: {device}")
+    train_set = ASVspoof2019LA(sys_config, exp_config, is_train=True)
+    dev_set = ASVspoof2019LA(sys_config, exp_config, is_train=False)
+    logger.print(f"train: {len(train_set)} utts ({train_set.num_of_spoof} "
+                 f"spoof / {train_set.num_of_bonafide} bonafide), dev: "
+                 f"{len(dev_set)}")
+
+    def loader(ds, batch_size, shuffle):
+        return DataLoader(ds, batch_size, shuffle=shuffle, drop_last=shuffle,
+                          seed=seed, num_workers=sys_config.num_workers,
+                          on_decode_error=sys_config.decode_error_policy)
+    train_loader = loader(train_set, exp_config.batch_size_train, True)
+    dev_loader = loader(dev_set, exp_config.batch_size_test, False)
+
+    spec = build_model(sys_config, exp_config, device, train=True)
+    state = init_state(spec, sys_config, exp_config, seed)
+    start = exp_config.restore_checkpoint or args.ckpt
+    if start and checkpoint.is_checkpoint(start):
+        checkpoint.restore_checkpoint(start, state)
+        logger.print(f"restored {start} (step {state.step})")
+    elif start:
+        load_checkpoint_for_eval(start, spec)
+        logger.print(f"loaded ckpt {start}")
+
+    test_loader = dev_loader
+    if args.accuracy and sys_config.path_label_asv_spoof_2021_df_eval:
+        test_loader = loader(ASVspoof2021DF_eval(sys_config, exp_config),
+                             exp_config.batch_size_test, False)
+    trainer = Trainer(state, train_loader, dev_loader, test_loader, logger,
+                      exp_config, device, rng_seed=seed)
+    if args.accuracy:
+        loss, acc = trainer.test(is_dev=test_loader is dev_loader)
+        logger.print(f"Test acc: {acc}, Test loss: {loss}")
+        return
+
+    patience = int(exp_config.kwargs.get("early_stop_patience", 0) or 0)
+    stopper = (EarlyStopping(patience=patience, save_dir=save_dir)
+               if patience > 0 else None)
+    best_loss, best_acc = float("inf"), 0.0
+    best_loss_epoch, best_acc_epoch = -1, -2
+    for epoch in range(args.max_epoch or exp_config.max_epoch):
+        trainer.train()
+        dev_loss, dev_acc = trainer.test(is_dev=True)
+        logger.print(f"epoch {epoch}: dev loss {dev_loss:.5f} acc {dev_acc:.2f}")
+        # both reference save triggers: the dev loss improved with accuracy
+        # above 95, or a new best accuracy above 95 in another epoch
+        save = False
+        if dev_loss < best_loss and dev_acc > 95:
+            best_loss, best_loss_epoch, save = dev_loss, epoch, True
+        if dev_acc > best_acc:
+            best_acc, best_acc_epoch = dev_acc, epoch
+            if best_acc_epoch != best_loss_epoch and best_acc > 95:
+                save = True
+        if save:
+            path = os.path.join(save_dir, f"best_LA_epoch{epoch}_"
+                                          f"{dev_loss:.5f}_{dev_acc:.2f}")
+            checkpoint.save_checkpoint(path, state, epoch, meta={
+                "epoch": epoch, "dev_loss": dev_loss, "dev_acc": dev_acc})
+            logger.print(f"saved {path}")
+        checkpoint.save_checkpoint(os.path.join(save_dir, "last"), state,
+                                   epoch, meta={"epoch": epoch,
+                                                "dev_loss": dev_loss})
+        if stopper is not None:
+            stopper(dev_loss, epoch, lambda p: checkpoint.save_checkpoint(
+                p, state, epoch, meta={"epoch": epoch}))
+            if stopper.early_stop:
+                logger.print(f"early stop at epoch {epoch} "
+                             f"(patience {patience})")
+                break
+    logger.close()
 
 
 def run_score(args, sys_config, exp_config, tracks, device):
@@ -155,17 +268,19 @@ def main(argv=None):
         validate_tracks(tracks)           # fail fast, before any checkpoint IO
     sys_config, exp_config = load_yaml_config(args.config)
     if not args.is_eval:
-        raise NotImplementedError("training is not yet ported; score with "
-                                  "--is_eval --is_score")
+        run_train(args, sys_config, exp_config, resolve_device(args.device))
+        return
     if args.score_all_folder_path:
         score_folder(args, sys_config, exp_config, tracks,
                      resolve_device(args.device))
         return
     if args.ckpt is None:
         raise ValueError("ckpt is None")
-    if not args.is_score:
-        raise NotImplementedError("eval without --is_score is not yet ported")
-    run_score(args, sys_config, exp_config, tracks, resolve_device(args.device))
+    if args.is_score:
+        run_score(args, sys_config, exp_config, tracks,
+                  resolve_device(args.device))
+        return
+    run_train(args, sys_config, exp_config, resolve_device(args.device))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""Eval datasets: decode + static-duration fit. The port's own copy of the
-eval part of ``rtdsd_tpu/data/dataset.py``.
+"""Datasets: decode + static-duration fit. The port's own copy of
+``rtdsd_tpu/data/dataset.py``: the train/dev set ``ASVspoof2019LA`` and the
+eval tracks.
 
 Every item is repeat-tiled and cut to exactly ``duration`` samples (whole
 copies, then the residue prefix, then the first or a random window), as the
@@ -74,6 +75,30 @@ class AudioDataset:
         else:
             wave = adjust_duration(wave, self.duration)
         return t.utt_id, wave.astype(np.float32), t.label
+
+
+class ASVspoof2019LA(AudioDataset):
+    """The ASVspoof 2019 LA train set (``is_train``, random-start crops when
+    ``is_random_start``) or dev set (first-N crops), at the train duration.
+    The host-side mul_augment chain of the JAX package is not ported: the
+    train step refuses a config that needs it."""
+
+    def __init__(self, sys_config: SysConfig, exp_config: ExpConfig,
+                 is_train: bool = True):
+        if is_train:
+            label_path = sys_config.path_label_asv_spoof_2019_la_train
+            audio_dir = sys_config.path_asv_spoof_2019_la_train
+        else:
+            label_path = sys_config.path_label_asv_spoof_2019_la_dev
+            audio_dir = sys_config.path_asv_spoof_2019_la_dev
+        trials, self.num_of_spoof, self.num_of_bonafide = \
+            protocols.parse_asvspoof2019_train(
+                label_path, audio_dir,
+                include_non_speech=exp_config.include_non_speech,
+                include_residual=exp_config.include_residual)
+        super().__init__(trials, exp_config.train_duration_samples,
+                         is_random_start=is_train and exp_config.is_random_start,
+                         sample_rate=exp_config.sample_rate)
 
 
 class ASVspoof2019LA_eval(AudioDataset):

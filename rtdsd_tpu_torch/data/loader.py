@@ -1,11 +1,14 @@
-"""Sequential eval batches: the port of the eval side of
-``rtdsd_tpu/data/loader.py`` (``DataLoader(shuffle=False, pad_last=True)``).
+"""Batches of decoded, duration-fit clips: the port of
+``rtdsd_tpu/data/loader.py``'s ``DataLoader`` (one process, ``pad_last``).
 
-Batches come in dataset order. The last partial batch is padded to the batch
-size by repeating its last row, and ``valid`` says how many rows are real, so
-every batch has one shape and score writers drop the padding. Both of the
-JAX loader's decode paths are here, with its generator
-``numpy.random.default_rng((seed, 0, 0))`` (epoch 0, process 0):
+:class:`DataLoader` is the training loader: with ``shuffle`` the order of
+epoch ``e`` is ``numpy.random.default_rng(seed + e)``'s permutation
+(:meth:`DataLoader.set_epoch`), and ``drop_last`` drops the last partial
+batch. :class:`EvalLoader` gives batches in dataset order. A last partial
+batch is padded to the batch size by repeating its last row, and ``valid``
+says how many rows are real, so every batch has one shape and score writers
+drop the padding. Both of the JAX loader's decode paths are here, with its
+crop generator ``numpy.random.default_rng((seed, epoch, 0))`` (process 0):
 
 - native (``use_native=True``, the default, as in the JAX CLI): one C call
   a batch decodes, resamples linearly, tiles and crops on ``num_workers``
@@ -35,8 +38,9 @@ class Batch(NamedTuple):
     valid: int
 
 
-class EvalLoader:
+class DataLoader:
     def __init__(self, dataset: AudioDataset, batch_size: int,
+                 shuffle: bool = False, drop_last: bool = False,
                  seed: int = 1024, num_workers: int = 2,
                  use_native: bool = True, on_decode_error: str = "raise"):
         if on_decode_error not in ("raise", "skip"):
@@ -44,6 +48,8 @@ class EvalLoader:
                              f"got {on_decode_error!r}")
         self.dataset = dataset
         self.batch_size = int(batch_size)
+        self.shuffle, self.drop_last = shuffle, drop_last
+        self.epoch = 0
         self.seed = seed
         self.num_workers = max(num_workers, 1)
         self.on_decode_error = on_decode_error
@@ -54,7 +60,18 @@ class EvalLoader:
             flac.load()
             self._native = flac
 
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def _indices(self) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        return idx
+
     def __len__(self) -> int:
+        if self.drop_last:
+            return len(self.dataset) // self.batch_size
         return -(-len(self.dataset) // self.batch_size)
 
     def _make_batch(self, indices, rng) -> Batch:
@@ -115,7 +132,19 @@ class EvalLoader:
                      np.asarray([t.label for t in trials], np.int32), valid)
 
     def __iter__(self) -> Iterator[Batch]:
-        rng = np.random.default_rng((self.seed, 0, 0))
-        n = len(self.dataset)
-        for s in range(0, n, self.batch_size):
-            yield self._make_batch(range(s, min(s + self.batch_size, n)), rng)
+        rng = np.random.default_rng((self.seed, self.epoch, 0))
+        idx = self._indices()
+        for b in range(len(self)):
+            yield self._make_batch(idx[b * self.batch_size:
+                                       (b + 1) * self.batch_size], rng)
+
+
+class EvalLoader(DataLoader):
+    """Batches in dataset order, the last one padded."""
+
+    def __init__(self, dataset: AudioDataset, batch_size: int,
+                 seed: int = 1024, num_workers: int = 2,
+                 use_native: bool = True, on_decode_error: str = "raise"):
+        super().__init__(dataset, batch_size, seed=seed,
+                         num_workers=num_workers, use_native=use_native,
+                         on_decode_error=on_decode_error)

@@ -1,9 +1,10 @@
 """ASVspoof / In-the-Wild protocol parsers: the port's own copy of
 ``rtdsd_tpu/data/protocols.py`` (same field layouts, same trial ids).
 
-- 2019 LA eval: ``file = fields[1]``, ``attack = fields[3]``,
-  bonafide iff ``fields[4] == 'bonafide'``; optional exclusion of
-  ``no_speech`` / ``residual`` utterances.
+- 2019 LA train, dev and eval: ``file = fields[1]``, ``attack =
+  fields[3]``, bonafide iff ``fields[4] == 'bonafide'``; optional exclusion
+  of ``no_speech`` / ``residual`` utterances (train and dev also count
+  spoof and bonafide lines before the exclusions).
 - 2021 LA eval: ``file = fields[1]``, label from ``fields[4]``.
 - 2021 DF eval: ``file = fields[1]``, label from ``fields[5]``; with the
   ``*_spec`` flag, ``file = fields[0]`` and label 1.
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +36,22 @@ class Trial:
 def _read_lines(path: str) -> List[List[str]]:
     with open(path) as f:
         return [ln.strip().split() for ln in f if ln.strip()]
+
+
+def parse_asvspoof2019_train(label_path: str, audio_dir: str,
+                             include_non_speech: bool = True,
+                             include_residual: bool = True
+                             ) -> Tuple[List[Trial], int, int]:
+    """-> (trials, spoof lines, bonafide lines); the counts include the
+    lines the exclusions drop, as the reference counts."""
+    n_spoof = n_bona = 0
+    for f in _read_lines(label_path):
+        if f[4] == "bonafide":
+            n_bona += 1
+        else:
+            n_spoof += 1
+    return (parse_asvspoof2019_eval(label_path, audio_dir, include_non_speech,
+                                    include_residual), n_spoof, n_bona)
 
 
 def parse_asvspoof2019_eval(label_path: str, audio_dir: str,

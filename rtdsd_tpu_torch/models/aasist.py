@@ -1,5 +1,5 @@
-"""AASIST spectro-temporal graph-attention back-end in PyTorch, eval mode:
-the port of ``rtdsd_tpu/models/aasist.py``.
+"""AASIST spectro-temporal graph-attention back-end in PyTorch: the port
+of ``rtdsd_tpu/models/aasist.py``.
 
 Attribute names are the reference's (``LL``, ``first_bn``,
 ``encoder.{i}.0.conv1``, ``attention.0``, ``GAT_layer_S.att_proj``,
@@ -14,9 +14,18 @@ Reference quirks kept, as in the JAX package: ``out_S1 + 1`` instead of
 ``+ out_S_aug`` unless ``fix_out_s1_bug``; ``Residual_block``'s conv1 reads
 the raw input (its bn1 output is dead in the reference).
 
-``fused_gat`` routes the graph attention through
-:mod:`rtdsd_tpu_torch.ops.gat` (the CUDA kernels on the card); without it
-the pairwise einsum path runs in plain PyTorch.
+``fused_gat`` routes the eval-mode graph attention through
+:mod:`rtdsd_tpu_torch.ops.gat` (the CUDA kernels on the card); in training,
+and without it, the pairwise einsum path runs in plain PyTorch, as the JAX
+package gates its kernels (``fused and not train``).
+
+Train mode (``module.train()``) adds the JAX package's dropout (fixed
+rates: 0.2 on the graph layers' inputs, 0.3 on the pooling scores' input,
+0.2 on the two branches' outputs, 0.5 on the last hidden), drawn from the
+seed source ``src`` (:mod:`.dropout`), and BatchNorm with batch statistics
+in float32. The running statistics move by ``0.9 * old + 0.1 * batch``
+with the *biased* batch variance, as flax's ``BatchNorm(momentum=0.9)``
+does (``F.batch_norm`` would use the unbiased one).
 """
 
 from __future__ import annotations
@@ -27,17 +36,35 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rtdsd_tpu_torch.models import dropout
 from rtdsd_tpu_torch.models.wav2vec2 import linear
 from rtdsd_tpu_torch.ops.gat import fused_gat_aggregate, fused_htrg_gat_aggregate
+
+BN_MOMENTUM = 0.9       # flax's: running = 0.9 * running + 0.1 * batch
 
 
 def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
                dtype: torch.dtype, channel_dim: int = 1) -> torch.Tensor:
-    """Eval BatchNorm with running statistics, computed in float32."""
+    """BatchNorm computed in float32: with the running statistics in eval,
+    with the batch's (biased variance) in training, which also moves the
+    running statistics as flax does."""
     xf = x.float().movedim(channel_dim, 1)
-    y = F.batch_norm(xf, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                     False, 0.0, bn.eps)
+    if bn.training:
+        with torch.no_grad():
+            dims = [d for d in range(xf.dim()) if d != 1]
+            var, mean = torch.var_mean(xf, dim=dims, correction=0)
+            bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+            bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+            bn.num_batches_tracked.add_(1)
+        y = F.batch_norm(xf, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+    else:
+        y = F.batch_norm(xf, bn.running_mean, bn.running_var, bn.weight,
+                         bn.bias, False, 0.0, bn.eps)
     return y.movedim(1, channel_dim).to(dtype)
+
+
+def _drop(module: nn.Module, x: torch.Tensor, p: float, src) -> torch.Tensor:
+    return dropout.drop(x, p, src) if module.training else x
 
 
 def _edge_weight(out_dim: int) -> nn.Parameter:
@@ -57,10 +84,11 @@ class GraphAttentionLayer(nn.Module):
         self.proj_without_att = nn.Linear(in_dim, out_dim)
         self.bn = nn.BatchNorm1d(out_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, src=None) -> torch.Tensor:
+        x = _drop(self, x, 0.2, src)
         dt = x.dtype
         att_k, att_b = self.att_proj.weight.t(), self.att_proj.bias
-        if self.fused:
+        if self.fused and not self.training:
             agg = fused_gat_aggregate(x, att_k, att_b, self.att_weight,
                                       self.temperature).to(dt)
         else:
@@ -96,7 +124,7 @@ class HtrgGraphAttentionLayer(nn.Module):
         self.bn = nn.BatchNorm1d(out_dim)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor,
-                master: Optional[torch.Tensor] = None
+                master: Optional[torch.Tensor] = None, src=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         dt = self.dtype
         n1 = x1.shape[1]
@@ -104,9 +132,10 @@ class HtrgGraphAttentionLayer(nn.Module):
                        linear(x2, self.proj_type2, dt)], dim=1)
         if master is None:
             master = x.mean(dim=1, keepdim=True)
+        x = _drop(self, x, 0.2, src)
         att_k, att_b = self.att_proj.weight.t(), self.att_proj.bias
         w11, w22, w12 = self.att_weight11, self.att_weight22, self.att_weight12
-        if self.fused:
+        if self.fused and not self.training:
             agg = fused_htrg_gat_aggregate(x, att_k, att_b, w11, w22, w12, n1,
                                            self.temperature).to(x.dtype)
         else:
@@ -147,8 +176,9 @@ class GraphPool(nn.Module):
         self.k, self.dtype = k, dtype
         self.proj = nn.Linear(in_dim, 1)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        scores = torch.sigmoid(linear(h, self.proj, self.dtype))   # (B, N, 1)
+    def forward(self, h: torch.Tensor, src=None) -> torch.Tensor:
+        z = _drop(self, h, 0.3, src)
+        scores = torch.sigmoid(linear(z, self.proj, self.dtype))   # (B, N, 1)
         n_keep = max(int(h.shape[1] * self.k), 1)
         idx = torch.sort(scores[..., 0], dim=1, descending=True,
                          stable=True).indices[:, :n_keep]
@@ -230,7 +260,8 @@ class AASISTBackend(nn.Module):
         self.pool_hT2 = GraphPool(pool_ratios[2], g1, dtype)
         self.out_layer = nn.Linear(5 * g1, num_classes)
 
-    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+    def forward(self, feats: torch.Tensor, src=None) -> torch.Tensor:
+        """``src``: the dropout seed source of a train forward."""
         dt = self.dtype
         x = linear(feats, self.LL, dt)                         # (B, T, 128)
         x = x.transpose(1, 2)[:, None]                         # (B, 1, 128, T)
@@ -247,30 +278,35 @@ class AASISTBackend(nn.Module):
         # spectral branch: softmax over time -> one node per frequency bin
         e_s = (x * torch.softmax(w, dim=3)).sum(dim=3).transpose(1, 2)   # (B, 42, C)
         e_s = e_s + self.pos_S.to(e_s.dtype)
-        out_s = self.pool_S(self.GAT_layer_S(e_s))
+        out_s = self.pool_S(self.GAT_layer_S(e_s, src), src)
         # temporal branch: softmax over frequency -> one node per frame
         e_t = (x * torch.softmax(w, dim=2)).sum(dim=2).transpose(1, 2)   # (B, W, C)
-        out_t = self.pool_T(self.GAT_layer_T(e_t))
+        out_t = self.pool_T(self.GAT_layer_T(e_t, src), src)
 
         master1 = self.master1.to(out_t.dtype)
         master2 = self.master2.to(out_t.dtype)
 
-        out_t1, out_s1, m1 = self.HtrgGAT_layer_ST11(out_t, out_s, master1)
-        out_s1 = self.pool_hS1(out_s1)
-        out_t1 = self.pool_hT1(out_t1)
-        out_t_aug, out_s_aug, m_aug = self.HtrgGAT_layer_ST12(out_t1, out_s1, m1)
+        out_t1, out_s1, m1 = self.HtrgGAT_layer_ST11(out_t, out_s, master1, src)
+        out_s1 = self.pool_hS1(out_s1, src)
+        out_t1 = self.pool_hT1(out_t1, src)
+        out_t_aug, out_s_aug, m_aug = self.HtrgGAT_layer_ST12(out_t1, out_s1,
+                                                              m1, src)
         out_t1 = out_t1 + out_t_aug
         out_s1 = out_s1 + out_s_aug if self.fix_out_s1_bug else out_s1 + 1
         m1 = m1 + m_aug
 
-        out_t2, out_s2, m2 = self.HtrgGAT_layer_ST21(out_t, out_s, master2)
-        out_s2 = self.pool_hS2(out_s2)
-        out_t2 = self.pool_hT2(out_t2)
-        out_t_aug, out_s_aug, m_aug = self.HtrgGAT_layer_ST22(out_t2, out_s2, m2)
+        out_t2, out_s2, m2 = self.HtrgGAT_layer_ST21(out_t, out_s, master2, src)
+        out_s2 = self.pool_hS2(out_s2, src)
+        out_t2 = self.pool_hT2(out_t2, src)
+        out_t_aug, out_s_aug, m_aug = self.HtrgGAT_layer_ST22(out_t2, out_s2,
+                                                              m2, src)
         out_t2 = out_t2 + out_t_aug
         out_s2 = out_s2 + out_s_aug
         m2 = m2 + m_aug
 
+        out_t1, out_t2, out_s1, out_s2, m1, m2 = (
+            _drop(self, y, 0.2, src)
+            for y in (out_t1, out_t2, out_s1, out_s2, m1, m2))
         out_t = torch.maximum(out_t1, out_t2)
         out_s = torch.maximum(out_s1, out_s2)
         master = torch.maximum(m1, m2)
@@ -278,4 +314,5 @@ class AASISTBackend(nn.Module):
             [out_t.abs().amax(dim=1), out_t.mean(dim=1),
              out_s.abs().amax(dim=1), out_s.mean(dim=1), master[:, 0, :]],
             dim=1)
+        last_hidden = _drop(self, last_hidden, 0.5, src)
         return linear(last_hidden, self.out_layer, dt)

@@ -1,4 +1,4 @@
-"""wav2vec2-XLSR front-end in PyTorch, eval mode: the port of
+"""wav2vec2-XLSR front-end in PyTorch: the port of
 ``rtdsd_tpu/models/wav2vec2.py``.
 
     raw wave (B, T)
@@ -13,11 +13,21 @@ reference's ``ssl_model.model``), so a reference checkpoint loads with
 matmul and convolution runs in the compute dtype, while LayerNorm and
 GroupNorm compute their statistics and normalisation in float32.
 
-The attention follows the JAX branch structure: in eval with a (b)f16
-compute dtype and ``fast_softmax`` on, the bf16 softmax stays plain PyTorch
+The attention follows the JAX branch structure: in training with
+``attention_dropout > 0`` the probabilities are explicit (the dropout needs
+them); with a (b)f16 compute dtype and ``fast_softmax`` on (in training
+only with ``fast_softmax_train`` too), the bf16 softmax stays plain PyTorch
 (plain einsums in JAX too); every other case goes through
 :func:`rtdsd_tpu_torch.ops.attention.mha_small_t`, the port of the Pallas
-kernel, which is the CUDA kernel on the card.
+kernel, which is the CUDA kernel on the card (in training with its float32
+backward).
+
+Train mode (``module.train()``) adds dropout at the JAX sites (the encoder
+input, attention probabilities, the attention output, the feed-forward
+hidden and output), drawn from the seed source passed as ``src``
+(:mod:`.dropout`). An encoder built with ``remat=True`` recomputes each
+transformer layer in the backward pass (``torch.utils.checkpoint``), as the
+JAX package's ``remat_policy: "full"`` does.
 
 With ``w8`` the six transformer matmuls are :class:`W8Linear` (int8
 weights) and with ``w8`` and ``a8`` :class:`W8A8Linear` (int8 weights and
@@ -33,7 +43,9 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from rtdsd_tpu_torch.models import dropout
 from rtdsd_tpu_torch.ops import fastgelu
 from rtdsd_tpu_torch.ops.attention import mha_small_t
 
@@ -44,9 +56,10 @@ _HALF = (torch.bfloat16, torch.float16)
 @dataclasses.dataclass(frozen=True)
 class Wav2Vec2Config:
     """Same fields and defaults as the JAX package's config, so one config
-    file drives both. Fields that only shape training or the TPU program
-    (``scan_unroll``, ``conv_impl``, ``remat_*``, ``fast_softmax_train``)
-    have nothing to do in the port's eval forward. ``conv_segments > 1``
+    file drives both. Fields that only shape the TPU program
+    (``scan_unroll``, ``conv_impl``) have nothing to do in the port; of the
+    remat fields only ``remat_policy: "full"`` with ``remat_save_every`` 0
+    or 1 is ported (ROADMAP Queue 1, item 7). ``conv_segments > 1``
     runs the conv front-end over that many stride-aligned overlapping
     segments batched along B (layer_norm extractor only). As in JAX, ``a8``
     takes effect only together with ``w8``."""
@@ -318,7 +331,7 @@ class SelfAttention(nn.Module):
 
 
 class TransformerLayer(nn.Module):
-    """Pre-LN fairseq TransformerSentenceEncoderLayer, eval mode."""
+    """Pre-LN fairseq TransformerSentenceEncoderLayer."""
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
         super().__init__()
@@ -330,9 +343,17 @@ class TransformerLayer(nn.Module):
         self.fc2 = dense(cfg, cfg.encoder_ffn_dim, d)
         self.final_layer_norm = nn.LayerNorm(d, eps=LN_EPS)
 
-    def attention(self, q, k, v) -> torch.Tensor:
+    def attention(self, q, k, v, src: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
         cfg, dt = self.cfg, self.dtype
-        if cfg.fast_softmax and dt in _HALF:
+        if self.training and cfg.attention_dropout > 0:
+            # explicit probabilities: the dropout applies to them
+            s = torch.einsum("bqhd,bkhd->bhqk", q * cfg.head_dim ** -0.5, k)
+            probs = torch.softmax(s.float(), dim=-1).to(dt)
+            probs = dropout.drop(probs, cfg.attention_dropout, src)
+            return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        if (cfg.fast_softmax and dt in _HALF
+                and (not self.training or cfg.fast_softmax_train)):
             # bf16 softmax: max-subtract in bf16, exp in f32, normalise in bf16
             s = torch.einsum("bqhd,bkhd->bhqk", q * cfg.head_dim ** -0.5, k)
             e = torch.exp((s - s.amax(-1, keepdim=True)).float()).to(dt)
@@ -340,8 +361,15 @@ class TransformerLayer(nn.Module):
             return torch.einsum("bhqk,bkhd->bqhd", probs, v)
         return mha_small_t(q, k, v)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None
+                ) -> torch.Tensor:
+        """In training, ``seed`` seeds the layer's dropout source (drawn
+        from torch's global generator when ``None``)."""
         cfg, dt = self.cfg, self.dtype
+        src = None
+        if self.training:
+            src = dropout.source(dropout.next_seed(None) if seed is None
+                                 else seed)
         at = self.self_attn
         b, t, d = x.shape
         h = layer_norm(x, self.self_attn_layer_norm, dt)
@@ -349,20 +377,34 @@ class TransformerLayer(nn.Module):
         q = linear(h, at.q_proj, dt).view(shape)
         k = linear(h, at.k_proj, dt).view(shape)
         v = linear(h, at.v_proj, dt).view(shape)
-        attn = self.attention(q, k, v).reshape(b, t, d)
-        x = x + linear(attn, at.out_proj, dt)
+        attn = self.attention(q, k, v, src).reshape(b, t, d)
+        x = x + self._drop(linear(attn, at.out_proj, dt), cfg.dropout, src)
         h = layer_norm(x, self.final_layer_norm, dt)
         h = fastgelu.gelu(linear(h, self.fc1, dt), fast=use_fast_gelu(cfg, dt))
-        return x + linear(h, self.fc2, dt)
+        h = self._drop(h, cfg.activation_dropout, src)
+        return x + self._drop(linear(h, self.fc2, dt), cfg.dropout, src)
+
+    def _drop(self, x, p, src):
+        return dropout.drop(x, p, src) if self.training else x
 
 
 class TransformerEncoder(nn.Module):
     """fairseq ``encoder``: ``pos_conv.0`` (grouped conv, weight norm folded
-    into a plain weight), ``layers.{i}``, ``layer_norm``."""
+    into a plain weight), ``layers.{i}``, ``layer_norm``. With ``remat``
+    each layer is recomputed in the backward pass of a train forward."""
 
-    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
+    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype,
+                 remat: bool = False):
         super().__init__()
-        self.cfg, self.dtype = cfg, dtype
+        if remat and (cfg.remat_policy != "full" or cfg.remat_save_every > 1):
+            if cfg.remat_policy not in ("full", "hidden", "dots"):
+                raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
+                                 "(have: full, hidden, dots)")
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} with remat_save_every "
+                f"{cfg.remat_save_every} is not yet ported (ROADMAP Queue 1, "
+                "item 7); use remat_policy 'full' and remat_save_every 0")
+        self.cfg, self.dtype, self.remat = cfg, dtype, remat
         d = cfg.encoder_embed_dim
         self.pos_conv = nn.Sequential(nn.Conv1d(
             d, d, cfg.conv_pos, padding=cfg.conv_pos // 2,
@@ -386,16 +428,24 @@ class TransformerEncoder(nn.Module):
         return fastgelu.gelu(pos.transpose(1, 2),
                              fast=use_fast_gelu(self.cfg, dt))
 
-    def forward(self, x: torch.Tensor, return_hiddens: bool = False):
+    def forward(self, x: torch.Tensor, return_hiddens: bool = False,
+                src: Optional[torch.Generator] = None):
         """(B, T, D) -> (B, T, D); with ``return_hiddens`` also the output
         of every layer stacked (L, B, T, D), taken before the final
-        LayerNorm, as the JAX scan's ``y``."""
+        LayerNorm, as the JAX scan's ``y``. In training each layer's dropout
+        seed is drawn from ``src`` here, outside the recomputed region."""
         x = x + self.positional(x)
         if not self.cfg.layer_norm_first:
             x = layer_norm(x, self.layer_norm, self.dtype)
         hiddens = []
         for layer in self.layers:
-            x = layer(x)
+            if not self.training:
+                x = layer(x)
+            elif self.remat:
+                x = checkpoint(layer, x, dropout.next_seed(src),
+                               use_reentrant=False)
+            else:
+                x = layer(x, dropout.next_seed(src))
             if return_hiddens:
                 hiddens.append(x)
         if self.cfg.layer_norm_first:
@@ -409,14 +459,14 @@ class Wav2Vec2Encoder(nn.Module):
     """Full XLSR front-end: wave (B, T) -> features (B, frames, D)."""
 
     def __init__(self, cfg: Wav2Vec2Config = Wav2Vec2Config(),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         c = cfg.conv_layers[-1][0]
         self.feature_extractor = ConvFeatureExtractor(cfg, dtype)
         self.layer_norm = nn.LayerNorm(c, eps=LN_EPS)
         self.post_extract_proj = nn.Linear(c, cfg.encoder_embed_dim)
-        self.encoder = TransformerEncoder(cfg, dtype)
+        self.encoder = TransformerEncoder(cfg, dtype, remat)
 
     def segmented_features(self, wave: torch.Tensor) -> torch.Tensor:
         """The conv front-end over ``cfg.conv_segments`` stride-aligned
@@ -438,13 +488,15 @@ class Wav2Vec2Encoder(nn.Module):
 
     def forward(self, wave: Optional[torch.Tensor], *,
                 return_hiddens: bool = False,
-                conv_feats: Optional[torch.Tensor] = None):
+                conv_feats: Optional[torch.Tensor] = None,
+                src: Optional[torch.Generator] = None):
         """``conv_feats`` (B, frames, C) bypasses the conv front-end (and
         ``conv_segments``), so ``wave`` may be ``None``: the incremental
         streaming scorer (engine/streaming.py) computes conv features once
         over long audio and re-enters here per window. ``return_hiddens``
         returns ``(x, hiddens)``, hiddens (L, B, T, D) as
-        :meth:`TransformerEncoder.forward` gives them."""
+        :meth:`TransformerEncoder.forward` gives them. ``src`` is the
+        dropout seed source of a train forward."""
         if conv_feats is not None:
             feats = conv_feats
         elif self.cfg.conv_segments > 1:
@@ -453,4 +505,6 @@ class Wav2Vec2Encoder(nn.Module):
             feats = self.feature_extractor(wave)
         x = layer_norm(feats, self.layer_norm, self.dtype)
         x = linear(x, self.post_extract_proj, self.dtype)
-        return self.encoder(x, return_hiddens=return_hiddens)
+        if self.training:
+            x = dropout.drop(x, self.cfg.dropout, src)
+        return self.encoder(x, return_hiddens=return_hiddens, src=src)

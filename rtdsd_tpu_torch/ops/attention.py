@@ -13,6 +13,12 @@ float32 has two kernels, chosen by a rule on the shape (:func:`f32_tiled`):
 the register-tiled one for T up to 512 / 384 / 256 / 128 at D = 16 / 32 /
 64 / 128, where its shared memory fits, and the one-warp-per-row one for
 longer T.
+
+When q, k or v requires grad (a train step), the call goes through an
+autograd function: its forward is the same kernel (or plain version), and
+its backward (:func:`mha_small_t_backward`) is plain PyTorch in float32 that
+recomputes the probabilities. The JAX package's kernel has no backward of
+its own either: its train step differentiates the XLA attention.
 """
 
 from __future__ import annotations
@@ -108,10 +114,50 @@ def _rows_aligned(x: torch.Tensor) -> bool:
         s * size % 16 == 0 for s, n in zip(x.stride()[:3], x.shape[:3]) if n > 1)
 
 
+def mha_small_t_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         dout: torch.Tensor, scale: float):
+    """(dQ, dK, dV) of softmax(s Q K^T) V for the output gradient ``dout``,
+    in float32, cast back to the inputs' dtype: P recomputed, dV = P^T dO,
+    dP = dO V^T, dS = P (dP - rowsum(dP P)), dQ = s dS K, dK = s dS^T Q."""
+    qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale, dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, df)
+    dp = torch.einsum("bqhd,bkhd->bhqk", df, vf)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _MhaSmallT(torch.autograd.Function):
+    """The kernel (or plain version) forward with the float32 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*mha_small_t_backward(*ctx.saved_tensors, dout, ctx.scale),
+                None)
+
+
 def mha_small_t(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale: Optional[float] = None) -> torch.Tensor:
     """Self-attention over (B, T, H, D) inputs with small T; default scale
-    ``D ** -0.5``. Launches the CUDA kernel for CUDA tensors."""
+    ``D ** -0.5``. Launches the CUDA kernel for CUDA tensors. The output
+    carries a gradient function when q, k or v requires grad."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _MhaSmallT.apply(q, k, v, scale)
+    return _forward(q, k, v, scale)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             scale: float) -> torch.Tensor:
     if q.device.type == "cpu":
         return mha_small_t_reference(q, k, v, scale)
     b, t, h, d = q.shape
@@ -132,8 +178,6 @@ def mha_small_t(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype == torch.bfloat16 and not all(map(_rows_aligned, (q, k, v))):
         raise ValueError("the bf16 kernel copies q, k, v rows in 16-byte "
                          "pieces: each row must start on a 16-byte boundary")
-    if scale is None:
-        scale = d ** -0.5
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 9)(*(s for x in (q, k, v)
                                      for s in x.stride()[:3]))

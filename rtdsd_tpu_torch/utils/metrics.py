@@ -1,6 +1,6 @@
-"""Score-file metrics: EER, min t-DCF and deployment calibration. The
-port's own copy of the eval half of ``rtdsd_tpu/utils/metrics.py``
-(numpy only; ``AverageMeter`` and ``EarlyStopping`` belong to training).
+"""Metrics: EER, min t-DCF and deployment calibration of score files, and
+the training loop's ``AverageMeter`` and ``EarlyStopping``. The port's own
+copy of ``rtdsd_tpu/utils/metrics.py`` (numpy only).
 
 EER is where FAR crosses FRR on the sorted-score sweep, linearly
 interpolated, which matches sklearn's ROC with a brentq root-find to float
@@ -8,6 +8,10 @@ precision.
 """
 
 from __future__ import annotations
+
+import os
+import shutil
+from typing import Optional
 
 import numpy as np
 
@@ -294,3 +298,65 @@ def compute_min_tdcf(cm_scores: np.ndarray, labels: np.ndarray, *,
     pfa_cm = 1.0 - np.searchsorted(spoof, thresholds, side="left") / len(spoof)
     tdcf = c0 + c1 * pmiss_cm + c2 * pfa_cm
     return float(np.min(tdcf) / norm)
+
+
+class AverageMeter:
+    """Running weighted average."""
+
+    def __init__(self, name: str = "meter", fmt: str = ":f"):
+        self.name = name
+        self.fmt = fmt
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val: float, n: int = 1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)
+
+    def __str__(self):
+        return f"{self.name} {self.val:.6f} ({self.avg:.6f})"
+
+
+class EarlyStopping:
+    """Early stopping on a lower-is-better metric with best-checkpoint
+    rotation: ``save_fn(path)`` writes the checkpoint of a new best under
+    ``{save_dir}/{prefix}_{epoch}``, and the previous best is removed."""
+
+    def __init__(self, patience: int = 7, verbose: bool = False,
+                 delta: float = 0.0, save_dir: str = ".",
+                 prefix: str = "best_checkpoint"):
+        self.patience = patience
+        self.verbose = verbose
+        self.delta = delta
+        self.save_dir = save_dir
+        self.prefix = prefix
+        self.counter = 0
+        self.best_score: Optional[float] = None
+        self.early_stop = False
+        self.best_path: Optional[str] = None
+
+    def __call__(self, metric: float, epoch: int, save_fn) -> bool:
+        """Returns True if ``metric`` improved on the best."""
+        score = -metric
+        if self.best_score is None or score > self.best_score + self.delta:
+            self.best_score = score
+            path = os.path.join(self.save_dir, f"{self.prefix}_{epoch}")
+            os.makedirs(self.save_dir, exist_ok=True)
+            save_fn(path)
+            if (self.best_path and self.best_path != path
+                    and os.path.exists(self.best_path)):
+                shutil.rmtree(self.best_path, ignore_errors=True)
+            self.best_path = path
+            self.counter = 0
+            return True
+        self.counter += 1
+        if self.counter >= self.patience:
+            self.early_stop = True
+        return False

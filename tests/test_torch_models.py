@@ -110,7 +110,7 @@ def test_gat_layer_matches_jax(tiny, fused):
                   {"params": v["params"]["backend"][name],
                    "batch_stats": v["batch_stats"]["backend"][name]},
                   x, train=False)
-    layer = aasist.GraphAttentionLayer(64, 64, 2.0, fused=fused)
+    layer = aasist.GraphAttentionLayer(64, 64, 2.0, fused=fused).eval()
     layer.load_state_dict(_sub(sd, name + "."), strict=True)
     got = layer(torch.from_numpy(x))
     # f32 GAT: the tolerance of tests/test_pallas.py's fused-vs-einsum checks
@@ -130,7 +130,7 @@ def test_htrg_layer_matches_jax(tiny, fused):
                   {"params": v["params"]["backend"][name],
                    "batch_stats": v["batch_stats"]["backend"][name]},
                   x1, x2, master, train=False)
-    layer = aasist.HtrgGraphAttentionLayer(64, 32, 100.0, fused=fused)
+    layer = aasist.HtrgGraphAttentionLayer(64, 32, 100.0, fused=fused).eval()
     layer.load_state_dict(_sub(sd, name + "."), strict=True)
     got = layer(*(torch.from_numpy(a) for a in (x1, x2, master)))
     for g, w in zip(got, want):   # type-1 nodes, type-2 nodes, master
@@ -147,7 +147,7 @@ def test_backend_matches_jax(tiny, fused):
                   {"params": v["params"]["backend"],
                    "batch_stats": v["batch_stats"]["backend"]},
                   feats, train=False)
-    be = aasist.AASISTBackend(feat_dim=32, fused_gat=fused)
+    be = aasist.AASISTBackend(feat_dim=32, fused_gat=fused).eval()
     be.load_state_dict({k: t for k, t in sd.items()
                         if not k.startswith("ssl_model.")}, strict=True)
     got = be(torch.from_numpy(feats))
