@@ -63,9 +63,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       23, the student of ``configs/kd_xlsr6_aasist.yaml``, ``fused_gat``,
       seed 1, its own ``--cascade_config``), scores the clips alone; then
       the cascade with the Conformer of (d) as the full model and the band
-      halfway between the 16th and 17th smallest |screener score|: 16
-      trials escalate, 6 x 2 + 24 ``mha_small_t``, 2 x 2 and 4 x 2 GAT
-      launches; lines that did not escalate are the screener's scores
+      halfway between the k-th and (k+1)-th smallest |screener score|, k
+      the split nearest 16 where they differ (bf16 scores tie): k trials
+      escalate, 6 x 2 + 24 x ceil(k / 16) ``mha_small_t``, 2 x 2 and 4 x 2
+      GAT launches; lines that did not escalate are the screener's scores
       exactly, escalated ones the Conformer's within the CLI-versus-forward
       tolerance;
    f. ``configs/realtime_b1.yaml``'s model kwargs (``conv_segments: 8``) on
@@ -163,6 +164,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       ``max_memory_allocated``, one step's launches (48 attention, no GAT),
       device busy share (kernel time over the profiled step's wall and
       over the median step) and device ms by kernel class (torch.profiler);
+   k. the shipped configs' SSL route and the XLSR-Conformer recipe: (a)
+      ``python -m rtdsd_tpu_torch.cli.convert --fairseq`` on 4j's
+      full-width SSL ``.pt`` writes a pytree directory, which the port
+      reads back equal to the ``.pt``'s own conversion, tensor for tensor;
+      (b) ``cli.main --max_epoch 1`` trains a full-width XLSR_Conformer in
+      bf16 from ``ssl_pytree_path`` on that directory (4j's clips, batch
+      32, ``fast_softmax: false``) with ``data_augmentation: [mul_augment,
+      ACN, HPF, LPF, GAN, TMK]`` and ``noise_path`` on four synthetic noise
+      WAVs under ``build/chip_smoke/train/noise``: launches exactly 48
+      ``mha_small_t`` a train step and 24 a dev batch, no GAT, every logged
+      loss finite, ``last/`` written; scoring from it (finite, 24); (c) one
+      float32 Conformer train step with both chains (TF32 off,
+      deterministic algorithms) on layers 0-3 at full width, batch 4, with
+      the kernels against the plain versions, gated as 4j (a); (d) bf16
+      Conformer train steps at batch 32 with both chains: ms (median [min,
+      max] of 5 after 2 warm-ups), ``max_memory_allocated``, one step's
+      launches, busy share, device ms by kernel class, the chains' own
+      device ms profiled alone on the batch, and the host chain's ms a
+      batch of 32 clips;
 5. one full-width float32 batch with the kernels against the same batch
    with every kernel swapped for its plain version (TF32 off): logits agree,
    for XLSR_AASIST and for XLSR_Conformer;
@@ -178,7 +198,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 It prints a ``{"kernels": [...]}`` line (``stream_launches``: the launches
 of the four runs of 4g together; ``serve_launches``: of the three CLI runs
 of 4h; ``daemon_launches``: of the daemon CLI run of 4i (b);
-``train_launches``: of the train CLI run of 4j), the
+``train_launches``: of the train CLI run of 4j;
+``conformer_train_launches``: of the Conformer train CLI run of 4k), the
 ``nvidia-smi`` name and power limit
 line, and as its last line ``{"ok": true, "device": {...}}``. Scratch
 files go to ``build/chip_smoke/`` in the checkout.
@@ -1064,7 +1085,8 @@ def conformer_path(ckpt: str) -> dict:
 
 def cascade_path(ckpt: str, screener_ckpt: str, conformer: dict) -> None:
     """4e: the screener alone, then the cascade with the band halfway
-    between the 16th and 17th smallest |screener score|: 16 trials
+    between the k-th and (k+1)-th smallest |screener score|, k the split
+    nearest 16 where the two differ (bf16 scores can tie): k trials
     escalate to the Conformer. Lines that did not escalate are the
     screener's scores exactly; escalated ones the Conformer's within the
     CLI-versus-forward tolerance."""
@@ -1078,9 +1100,10 @@ def cascade_path(ckpt: str, screener_ckpt: str, conformer: dict) -> None:
     if launches != want:
         raise RuntimeError(f"kernel launches {launches} != {want}")
     mags = np.sort(np.abs(list(screen.values())))
-    half = N_CLIPS // 2
-    if not mags[half - 1] < mags[half]:
-        raise RuntimeError("tied screener scores at the band's edge")
+    cuts = [k for k in range(1, N_CLIPS) if mags[k - 1] < mags[k]]
+    if not cuts:
+        raise RuntimeError("every screener score has the same magnitude")
+    half = min(cuts, key=lambda k: abs(k - N_CLIPS // 2))
     band = float((mags[half - 1] + mags[half]) / 2)
     launches, cascade, wall = run_cli(
         os.path.join(WORK, "config_conformer.json"), ckpt, "cascade",
@@ -2393,18 +2416,18 @@ def train_cli(sd: dict, dev) -> dict:
             or score_launches != want:
         raise RuntimeError("4j scoring from the trained checkpoint failed")
     shutil.rmtree(os.path.join(root, "runs"))
-    os.remove(ssl_pt)
-    return launches
+    return launches, ssl_pt
 
 
-def _train_step_outputs(model, waves, labels, lr) -> dict:
-    """One train step (RawBoost4, seed TRAIN_SEED) on a fresh AdamW: the
-    loss, the gradients, the state dict after the step and AdamW's moments
-    (the first, and the square root of the second, both linear in |g|)."""
+def _train_step_outputs(model, waves, labels, lr, step_kw=None) -> dict:
+    """One train step (``step_kw``, default RawBoost4; seed TRAIN_SEED) on
+    a fresh AdamW: the loss, the gradients, the state dict after the step
+    and AdamW's moments (the first, and the square root of the second,
+    both linear in |g|)."""
     from rtdsd_tpu_torch.engine import steps
 
     state = steps.TrainState(model, steps.make_optimizer(model, lr, 1e-4))
-    step = steps.make_train_step(rawboost_algo=4)
+    step = steps.make_train_step(**(step_kw or {"rawboost_algo": 4}))
     loss = float(step(state, waves, labels, TRAIN_SEED)["loss"])
     params = dict(model.named_parameters())
     out = {"loss": loss,
@@ -2486,10 +2509,12 @@ def held_per_tensor(got: dict, want: dict, rel: float) -> dict:
     return {"zero": zero, "gap": gap, "over": over}
 
 
-def _parity_runs(model, ref: dict, waves, labels, names) -> tuple:
-    """The train step from ``ref`` once for each of ``names`` ("kernels",
-    "plain", "again": plain repeated, "sdpa": math SDPA attention), under
-    deterministic algorithms; -> (runs, the kernels run's launches)."""
+def _parity_runs(model, ref: dict, waves, labels, names, step_kw=None
+                 ) -> tuple:
+    """The train step (``step_kw``) from ``ref`` once for each of
+    ``names`` ("kernels", "plain", "again": plain repeated, "sdpa": math
+    SDPA attention), under deterministic algorithms; -> (runs, the kernels
+    run's launches)."""
     ctxs = {"kernels": contextlib.nullcontext, "plain": plain_kernels,
             "again": plain_kernels,
             "sdpa": lambda: attention_swapped(sdpa_math)}
@@ -2500,7 +2525,7 @@ def _parity_runs(model, ref: dict, waves, labels, names) -> tuple:
             reset_counters()
             with ctxs[name]():
                 runs[name] = _train_step_outputs(model, waves, labels,
-                                                 TRAIN_LR)
+                                                 TRAIN_LR, step_kw)
             if name == "kernels":
                 launches = read_counters()
     return runs, launches
@@ -2712,6 +2737,308 @@ def train_timed(sd: dict, dev, card: str) -> None:
         raise RuntimeError(f"4j (c): a train step launched {launches}")
     del state, model
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phase 4k
+
+# configs/xlsr_conformer.yaml's model with the reference's other recipe:
+# the mul_augment chain (host noise, then TST GAN AIR TMK on the card)
+# before pre-emphasis and the trainer-side chain after it
+CONFORMER_AUGS = ["mul_augment", "ACN", "HPF", "LPF", "GAN", "TMK"]
+CONFORMER_TRAIN_KWARGS = {"w2v": {"fast_softmax": False}}
+NOISE_FILES = 4
+
+
+def write_noise(root: str) -> str:
+    """Four noise WAVs of 2-5 s (white, and three coloured by a first-order
+    filter, from seed 4) under ``root/noise``."""
+    from scipy.signal import lfilter
+
+    from rtdsd_tpu_torch.data.io import write_wav
+
+    rng = np.random.default_rng(4)
+    out = os.path.join(root, "noise")
+    os.makedirs(out, exist_ok=True)
+    for i in range(NOISE_FILES):
+        n = 16000 * (2 + i)
+        x = lfilter([1.0], [1.0, -0.3 * i], rng.standard_normal(n))
+        write_wav(os.path.join(out, f"noise_{i}.wav"),
+                  (0.1 * x / np.abs(x).max()).astype(np.float32), 16000)
+    return out
+
+
+def convert_ssl(ssl_pt: str) -> tuple:
+    """4k (a): ``python -m rtdsd_tpu_torch.cli.convert --fairseq`` on 4j's
+    full-width ``.pt`` -> a pytree directory, read back by the port bit
+    for bit against the ``.pt``'s own conversion; -> (the directory, the
+    encoder state dict read back)."""
+    from rtdsd_tpu_torch.cli.common import load_ssl_state_dict
+    from rtdsd_tpu_torch.models.convert_fairseq import encoder_state_dict
+
+    out = os.path.join(os.path.dirname(ssl_pt), "xlsr_pytree")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "rtdsd_tpu_torch.cli.convert",
+                        "--fairseq", ssl_pt, "--out", out], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode:
+        raise RuntimeError(f"4k (a) convert failed:\n{r.stdout}{r.stderr}")
+    t0 = time.perf_counter()
+    got = load_ssl_state_dict(out)
+    read_s = time.perf_counter() - t0
+    want = encoder_state_dict(ssl_pt)
+    same = got.keys() == want.keys() and all(torch.equal(got[k], want[k])
+                                             for k in want)
+    size = os.path.getsize(os.path.join(out, "weights.msgpack"))
+    log(f"4k (a) cli.convert --fairseq: {r.stdout.strip()}; weights.msgpack "
+        f"{size / 2**30:.3f} GiB in {wall:.1f} s (a subprocess); read back in "
+        f"{read_s:.1f} s: {len(got)} tensors bit for bit equal to the .pt's: "
+        f"{same}")
+    if not same:
+        raise RuntimeError("4k (a): the pytree read back differs from the .pt")
+    os.remove(ssl_pt)
+    return out, got
+
+
+def write_conformer_train_config(root: str, pytree: str, noise: str) -> str:
+    """4j's set and batch with ``model: XLSR_Conformer`` from
+    ``ssl_pytree_path`` and the CONFORMER_AUGS chains on ``noise``."""
+    with open(os.path.join(root, "train.json")) as f:
+        cfg = json.load(f)
+    cfg["SysConfig"].update({
+        "model": "XLSR_Conformer", "ssl_ckpt_path": "",
+        "ssl_pytree_path": pytree, "noise_path": noise,
+        "path_to_save_model": os.path.join(root, "runs_conformer"),
+        "la19_score_save_path": os.path.join(root, "scores_conformer.txt")})
+    cfg["ExpConfig"].update({"data_augmentation": CONFORMER_AUGS,
+                             "allow_data_augmentation": True,
+                             "kwargs": CONFORMER_TRAIN_KWARGS})
+    path = os.path.join(root, "train_conformer.json")
+    with open(path, "w") as f:
+        f.write(json.dumps(cfg, indent=1).replace(": 1e-06", ": 1.0e-06"))
+    return path
+
+
+def conformer_train_cli(cfg: str) -> dict:
+    """4k (b): ``cli.main --max_epoch 1`` on the XLSR_Conformer config, then
+    scoring from ``last/``, the counters zeroed just before each."""
+    from rtdsd_tpu_torch.cli import main as cli
+
+    root = os.path.dirname(cfg)
+    reset_counters()
+    t0 = time.perf_counter()
+    cli.main(["--config", cfg, "--max_epoch", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    steps_, dev_batches = TRAIN_CLIPS // TRAIN_BATCH, -(-DEV_CLIPS // TRAIN_BATCH)
+    want = launches_want(48 * steps_ + 24 * dev_batches)
+    runs = os.path.join(root, "runs_conformer")
+    with open(os.path.join(runs, "metrics.jsonl")) as f:
+        recs = [json.loads(l) for l in f]
+    losses = [r["Loss"] for r in recs if "Loss" in r]
+    last = os.path.join(runs, "last")
+    log(f"4k (b) XLSR_Conformer train CLI (bf16, ssl_pytree_path, "
+        f"{'+'.join(CONFORMER_AUGS)}, {NOISE_FILES} noise files, batch "
+        f"{TRAIN_BATCH}, 1 epoch: {steps_} steps + {dev_batches} dev batch): "
+        f"launches {launches} (want {want}: 48 attention a step, forward and "
+        f"remat recompute, 24 a dev batch, no GAT); losses {losses}; dev "
+        f"{[(r['Dev Loss'], r['Dev Acc']) for r in recs if 'Dev Loss' in r]}; "
+        f"last/ {sorted(os.listdir(last))}; wall {wall:.1f} s incl. the "
+        f"pytree read, the host chain and the checkpoint write")
+    if launches != want:
+        raise RuntimeError(f"4k (b): train launches {launches} != {want}")
+    if len(losses) != steps_ or not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"4k (b): train losses {losses}")
+    if sorted(os.listdir(last)) != ["meta.json", "state.pt"]:
+        raise RuntimeError(f"4k (b): last/ holds {os.listdir(last)}")
+    reset_counters()
+    cli.main(["--config", cfg, "--is_eval", "--is_score", "--ckpt", last,
+              "--tracks", "LA19"])
+    torch.cuda.synchronize()
+    score_launches = read_counters()
+    with open(os.path.join(root, "scores_conformer.txt")) as f:
+        vals = np.array([float(l.split(" ")[1]) for l in f.read().splitlines()])
+    want = launches_want(24 * dev_batches)
+    log(f"4k (b) scoring from last/: {len(vals)} scores, finite "
+        f"{int(np.isfinite(vals).sum())}; launches {score_launches} (want "
+        f"{want})")
+    if len(vals) != DEV_CLIPS or not np.all(np.isfinite(vals)) \
+            or score_launches != want:
+        raise RuntimeError("4k (b): scoring from the trained checkpoint failed")
+    shutil.rmtree(runs)
+    return launches
+
+
+def conformer_model(ssl_sd: dict, dtype: torch.dtype, dev, layers=None):
+    """A train-mode XLSR_Conformer (``layers``: the first that many of a
+    pruned My_XLSR_Conformer) as ``init_state`` makes it: the JAX
+    initialisers from TRAIN_SEED, the encoder from ``ssl_sd`` (the pytree
+    directory's)."""
+    from rtdsd_tpu_torch.models.registry import get_model
+    from rtdsd_tpu_torch.models.wav2vec2 import select_layers
+    from rtdsd_tpu_torch.models.zoo import init_weights
+
+    spec = get_model("My_XLSR_Conformer" if layers else "XLSR_Conformer",
+                     dtype=dtype, remat=True, **CONFORMER_TRAIN_KWARGS,
+                     **({"num_layers": layers} if layers else {}))
+    init_weights(spec.module, TRAIN_SEED)
+    spec.module.ssl_model.model.load_state_dict(select_layers(
+        ssl_sd, spec.layer_indices, prefix=""))
+    return spec.module.to(dev).train()
+
+
+def conformer_step_kw() -> dict:
+    from rtdsd_tpu_torch.engine import steps
+
+    return {"pre_aug_list": steps.pre_device_augs(CONFORMER_AUGS),
+            "aug_list": steps.post_device_augs(CONFORMER_AUGS, True)}
+
+
+def conformer_parity(ssl_sd: dict, dev) -> None:
+    """4k (c): one float32 XLSR_Conformer train step (both chains on, TF32
+    off, deterministic algorithms) at batch 4 with the kernels against the
+    same step with the plain versions, same seed, on the first
+    PARITY_LAYERS layers at full width, gated as 4j (a)."""
+    waves, labels = train_batch(dev, PARITY_BATCH)
+    model = conformer_model(ssl_sd, torch.float32, dev, PARITY_LAYERS)
+    ref = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    runs, launches = _parity_runs(model, ref, waves, labels,
+                                  ("kernels", "plain", "again"),
+                                  conformer_step_kw())
+    del model
+    torch.cuda.empty_cache()
+    plain, got = runs["plain"], runs["kernels"]
+    held = {k: held_per_tensor(got[k], plain[k], TRAIN_GRAD_TOL)
+            for k in ("grads", "mu", "sqrt_nu")}
+    g = held["grads"]
+    real = [n for n in g["gap"] if n not in g["zero"]]
+    again = max(float((runs["again"]["grads"][n] - t).abs().max())
+                for n, t in plain["grads"].items())
+    d_loss = abs(got["loss"] - plain["loss"])
+    d_stats, d_params = _stats_and_params(got["state"], plain["state"])
+    log(f"4k (c) f32 XLSR_Conformer train step, layers 0-{PARITY_LAYERS - 1} "
+        f"at full width, batch {PARITY_BATCH}, both chains (gated): launches "
+        f"{launches}; loss kernels {got['loss']:.7f}, plain "
+        f"{plain['loss']:.7f} (tol {TRAIN_LOSS_TOL}); plain repeated max|d| "
+        f"of gradients {again:.3g}; {len(real)} gradients held to "
+        f"{TRAIN_GRAD_TOL} of their max: worst {_worst(g['gap'], real)}; "
+        f"{len(g['zero'])} zero in exact arithmetic held under "
+        f"{TRAIN_ZERO_TOL:g} of the largest: worst "
+        f"{_worst(g['gap'], g['zero'], 1)}; AdamW moments: first worst "
+        f"{_worst(held['mu']['gap'], held['mu']['gap'], 1)}, square root of "
+        f"the second worst "
+        f"{_worst(held['sqrt_nu']['gap'], held['sqrt_nu']['gap'], 1)}; BN "
+        f"statistics max|d| {d_stats:.3g} (tol {TRAIN_STATS_TOL}); parameters "
+        f"after AdamW max|d| {d_params:.3g} (tol {PARAM_TOL:g})")
+    over = {k: h["over"] for k, h in held.items() if h["over"]}
+    failed = []
+    if launches != launches_want(2 * PARITY_LAYERS):
+        failed.append(f"launches {launches}")
+    if (d_loss > TRAIN_LOSS_TOL or over or d_stats > TRAIN_STATS_TOL
+            or d_params > PARAM_TOL):
+        failed.append(f"loss {d_loss:.3g}, past their bounds {over}, "
+                      f"statistics {d_stats:.3g}, parameters {d_params:.3g}")
+    if failed:
+        raise RuntimeError("4k (c): the kernels' Conformer train step "
+                           f"disagrees with the plain one: {failed}")
+
+
+def conformer_train_timed(ssl_sd: dict, noise: str, dev, card: str) -> None:
+    """4k (d): bf16 XLSR_Conformer train steps at batch 32 with both chains:
+    ms a step, the allocator's peak, one step's launches, busy share,
+    device ms by kernel class, the chains' own device ms (profiled alone on
+    the same batch) and the host chain's ms a batch."""
+    import warnings
+
+    from rtdsd_tpu_torch.data.host_augment import build_host_chain
+    from rtdsd_tpu_torch.engine import steps
+    from rtdsd_tpu_torch.ops.augment import augment
+    from rtdsd_tpu_torch.ops.preemphasis import pre_emphasis
+
+    waves, labels = train_batch(dev, TRAIN_BATCH)
+    model = conformer_model(ssl_sd, torch.bfloat16, dev)
+    state = steps.TrainState(model, steps.make_optimizer(model, TRAIN_LR, 1e-4))
+    kw = conformer_step_kw()
+    step = steps.make_train_step(**kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(2):
+        step(state, waves, labels, TRAIN_SEED)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TRAIN_STEPS_TIMED):
+        t0 = time.perf_counter()
+        step(state, waves, labels, TRAIN_SEED)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    reset_counters()
+    step(state, waves, labels, TRAIN_SEED)
+    launches = read_counters()
+    rows, wall_ms = _profiled(lambda: step(state, waves, labels, TRAIN_SEED),
+                              inference=False)
+    busy = sum(r[1] for r in rows)
+
+    def chains():
+        gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+        x = augment(waves, kw["pre_aug_list"], gen)
+        return augment(pre_emphasis(x, 0.97), kw["aug_list"], gen)
+    aug_rows, aug_wall = _profiled(chains)
+    aug_ms = sum(r[1] for r in aug_rows)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the warning of a missing codec
+        chain = build_host_chain(noise, 16000)
+    host = waves.cpu().numpy()
+    host_ms = []
+    for i in range(3):
+        rng = np.random.default_rng(i)
+        t0 = time.perf_counter()
+        np.stack([chain(w, rng) for w in host])
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    median = statistics.median(times)
+    log(f"4k (d) bf16 XLSR_Conformer train step, batch {TRAIN_BATCH} "
+        f"({'+'.join(CONFORMER_AUGS)}, remat, fast_softmax off), {card}: "
+        f"{median:.1f} ms median [{min(times):.1f}, {max(times):.1f}] of "
+        f"{TRAIN_STEPS_TIMED} after 2 warm-ups; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} before the first step); "
+        f"one step's launches {launches}; profiled step: kernels {busy:.1f} "
+        f"ms, {sum(r[2] for r in rows)} kernel launches, wall {wall_ms:.1f} "
+        f"ms (device busy {100 * busy / wall_ms:.1f}% under the profiler, "
+        f"{100 * busy / median:.1f}% of the median unprofiled step)")
+    log(f"  the chains alone on the batch (TST GAN AIR TMK, pre-emphasis, "
+        f"ACN HPF LPF GAN TMK): kernels {aug_ms:.2f} ms "
+        f"({100 * aug_ms / busy:.1f}% of the step's), "
+        f"{sum(r[2] for r in aug_rows)} launches, wall {aug_wall:.1f} ms; "
+        f"top: " + "; ".join(f"{k[:40]} {ms:.2f} ms x{n}" for k, ms, n in
+                             sorted(aug_rows, key=lambda r: -r[1])[:4]))
+    log(f"  host chain ({', '.join(type(t).__name__ for t in chain.transforms)}"
+        f"; {NOISE_FILES} noise files) on {TRAIN_BATCH} four-second clips: "
+        f"{statistics.median(host_ms):.1f} ms a batch, median of 3 "
+        f"[{min(host_ms):.1f}, {max(host_ms):.1f}]")
+    for cls, (ms, n) in sorted(by_class(rows).items(), key=lambda kv: -kv[1][0]):
+        log(f"  class {cls:22s} {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n}")
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
+        log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<5d} {key[:90]}")
+    if launches != launches_want(48):
+        raise RuntimeError(f"4k (d): a train step launched {launches}")
+    del state, model
+    torch.cuda.empty_cache()
+
+
+def conformer_train_path(ssl_pt: str, dev, card: str) -> dict:
+    """Phase 4k; -> the launches of its train CLI epoch."""
+    root = os.path.join(WORK, "train")
+    pytree, ssl_sd = convert_ssl(ssl_pt)
+    noise = write_noise(root)
+    launches = conformer_train_cli(write_conformer_train_config(root, pytree,
+                                                                noise))
+    torch.cuda.empty_cache()
+    shutil.rmtree(pytree)
+    conformer_parity(ssl_sd, dev)
+    conformer_train_timed(ssl_sd, noise, dev, card)
+    return launches
 
 
 def frontend_path(sd: dict, dev) -> dict:
@@ -3010,10 +3337,11 @@ def main() -> int:
     daemon_capacity(bf16_serving, reload_peak)
     del bf16_serving
     torch.cuda.empty_cache()
-    train_launches = train_cli(sd, dev)
+    train_launches, ssl_pt = train_cli(sd, dev)
     train_parity(sd, dev)
     attention_grad_check(dev)
     train_timed(sd, dev, card)
+    conformer_launches = conformer_train_path(ssl_pt, dev, card)
 
     # phase 5: one f32 batch, kernels against plain versions, TF32 off
     waves = batch_waves(dev)
@@ -3106,6 +3434,7 @@ def main() -> int:
                     serve_launches=serve_launches[k],
                     daemon_launches=daemon_launches[k],
                     train_launches=train_launches[k],
+                    conformer_train_launches=conformer_launches[k],
                     path=paths.get(k, "bf16 CLI scoring, 2 batches"), **rec)
                for k, (rec, route, src, rep) in records.items()]
     print(json.dumps({"kernels": kernels}))

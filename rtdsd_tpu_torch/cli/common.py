@@ -4,7 +4,7 @@ state construction, checkpoint loading, scoring)."""
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 
@@ -14,12 +14,16 @@ from rtdsd_tpu_torch.data.loader import EvalLoader
 from rtdsd_tpu_torch.engine import checkpoint
 from rtdsd_tpu_torch.engine.steps import (TrainState, make_optimizer,
                                           make_score_step, reinit_params)
-from rtdsd_tpu_torch.models.convert import load_reference_state_dict
+from rtdsd_tpu_torch.models.convert import (StateDict, from_jax_ssl_params,
+                                            from_jax_variables,
+                                            load_reference_state_dict)
 from rtdsd_tpu_torch.models.convert_fairseq import encoder_state_dict
+from rtdsd_tpu_torch.models.convert_hf import convert_hf_checkpoint, load_hf_dir
 from rtdsd_tpu_torch.models.quantize import quantize_state_dict
 from rtdsd_tpu_torch.models.registry import ModelSpec, get_model
 from rtdsd_tpu_torch.models.wav2vec2 import select_layers
 from rtdsd_tpu_torch.models.zoo import init_weights
+from rtdsd_tpu_torch.utils import flax_msgpack
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -46,22 +50,19 @@ def build_model(sys_config: SysConfig, exp_config: ExpConfig,
 def init_state(spec: ModelSpec, sys_config: SysConfig, exp_config: ExpConfig,
                seed: int) -> TrainState:
     """Initialise ``spec.module`` with the JAX package's initialisers from
-    ``seed``, load the SSL checkpoint ``ssl_ckpt_path`` into its encoder
-    (a fairseq ``.pt`` or a reference-named one; the layers a pruned
-    student keeps are selected from it) and re-initialise the configured
-    SSL parameters after it; then the optimizer."""
+    ``seed``, load the SSL checkpoint (``ssl_pytree_path``, else
+    ``ssl_ckpt_path``; see :func:`load_ssl_state_dict`) into its encoder,
+    the layers a pruned student keeps selected from it, and re-initialise
+    the configured SSL parameters after it; then the optimizer."""
     model = spec.module
     init_weights(model, seed)
     ssl_src = sys_config.ssl_pytree_path or sys_config.ssl_ckpt_path
-    if sys_config.ssl_pytree_path or (ssl_src and os.path.isdir(ssl_src)):
-        raise NotImplementedError(
-            f"{ssl_src}: SSL init from an HF snapshot or the JAX package's "
-            "pytree directory is not yet ported (ROADMAP Queue 1, item 7); "
-            "set ssl_ckpt_path to a fairseq .pt and ssl_pytree_path to ''")
     if ssl_src:
-        sd = select_layers(encoder_state_dict(ssl_src), spec.layer_indices,
-                           prefix="")
-        model.ssl_model.model.load_state_dict(sd, strict=True)
+        enc = model.ssl_model.model
+        sd = select_layers(load_ssl_state_dict(ssl_src, model.w2v_cfg),
+                           spec.layer_indices, prefix="")
+        check_ssl_shapes(enc.state_dict(), sd, ssl_src)
+        enc.load_state_dict(sd, strict=True)
         if spec.reinit_patterns:
             reinit_params(model.ssl_model, spec.reinit_patterns, seed ^ 0x5eed)
     opt = make_optimizer(model, exp_config.lr, exp_config.weight_decay,
@@ -71,20 +72,75 @@ def init_state(spec: ModelSpec, sys_config: SysConfig, exp_config: ExpConfig,
     return TrainState(model, opt)
 
 
+def load_ssl_state_dict(path: str, expect_cfg=None) -> StateDict:
+    """The encoder's state dict from an SSL checkpoint, dispatched as the
+    JAX package's ``load_ssl_params``: a directory holding ``config.json``
+    is an HF snapshot, any other directory the JAX package's pytree
+    directory (its ``weights.msgpack`` ``params``, as ``cli.convert``
+    writes it), a file a fairseq or reference-named ``.pt``.
+
+    ``expect_cfg``, the model's ``Wav2Vec2Config``: an HF snapshot's
+    config must agree with it on the fields that change no parameter shape
+    (a wrong head split would load cleanly and compute garbage)."""
+    if not os.path.isdir(path):
+        return encoder_state_dict(path)
+    if not os.path.exists(os.path.join(path, "config.json")):
+        params = flax_msgpack.read(os.path.join(path, "weights.msgpack"))
+        return from_jax_ssl_params(params["params"])
+    sd, derived = convert_hf_checkpoint(*load_hf_dir(path))
+    if expect_cfg is not None:
+        bad = [f"  {f}: snapshot {getattr(derived, f)!r} vs model "
+               f"{getattr(expect_cfg, f)!r}"
+               for f in ("encoder_heads", "layer_norm_first")
+               if getattr(derived, f) != getattr(expect_cfg, f)]
+        if bad:
+            raise ValueError(
+                f"HF snapshot {path!r} config disagrees with the model's w2v "
+                "config on shape-invisible fields (these would load cleanly "
+                "but run wrong math):\n" + "\n".join(bad))
+    return sd
+
+
+def check_ssl_shapes(model_sd: Mapping[str, torch.Tensor],
+                     ckpt_sd: Mapping[str, torch.Tensor], src: str) -> None:
+    """Raise a readable error, listing the mismatched entries, when an SSL
+    checkpoint's dimensions do not match the model's ``w2v`` config (the
+    JAX package's ``_check_ssl_shapes``, over the encoder's names)."""
+    have = {k: tuple(v.shape) for k, v in ckpt_sd.items()}
+    problems = []
+    for key, t in model_sd.items():
+        got = have.pop(key, None)
+        if got is None:
+            problems.append(f"  missing in checkpoint: {key} "
+                            f"(model wants {tuple(t.shape)})")
+        elif got != tuple(t.shape):
+            problems.append(f"  {key}: checkpoint {got} vs model "
+                            f"{tuple(t.shape)}")
+    problems += [f"  not in model: {k} {v}" for k, v in have.items()]
+    if problems:
+        shown = "\n".join(problems[:8])
+        more = (f"\n  ... and {len(problems) - 8} more"
+                if len(problems) > 8 else "")
+        raise ValueError(
+            f"SSL checkpoint {src!r} does not match the model's w2v config "
+            f"({len(problems)} mismatched leaves):\n{shown}{more}\n"
+            "Check ExpConfig.kwargs.w2v (encoder dims / conv_layers / "
+            "num_layers) against the checkpoint's architecture.")
+
+
 def load_checkpoint_for_eval(ckpt: str, spec: ModelSpec) -> None:
-    """Load a reference ``.pt`` or the model of one of the port's
-    checkpoint directories into ``spec.module`` (strict). The JAX package's
-    checkpoint directories are not readable by the port yet."""
+    """Load a model into ``spec.module`` (strict) from a reference ``.pt``,
+    one of the port's checkpoint directories, or one of the JAX package's:
+    ``state.msgpack`` (its ``params`` and ``batch_stats``; the step and
+    the optimizer state are not read) or weights-only ``weights.msgpack``.
+    The JAX package's orbax directories raise."""
     if checkpoint.is_checkpoint(ckpt):
-        spec.module.load_state_dict(checkpoint.load_model_state(ckpt),
-                                    strict=True)
-        return
-    if os.path.isdir(ckpt):
-        raise NotImplementedError(
-            f"{ckpt}: checkpoint directories of the JAX package are not yet "
-            "readable by the port (ROADMAP Queue 1, item 7d); export a "
-            "reference .pt with rtdsd_tpu.models.export_reference")
-    spec.module.load_state_dict(load_reference_state_dict(ckpt), strict=True)
+        sd = checkpoint.load_model_state(ckpt)
+    elif os.path.isdir(ckpt):
+        sd = from_jax_variables(checkpoint.load_jax_variables(ckpt), spec.name)
+    else:
+        sd = load_reference_state_dict(ckpt)
+    spec.module.load_state_dict(sd, strict=True)
 
 
 def apply_w8(sys_config: SysConfig, exp_config: ExpConfig, spec: ModelSpec,

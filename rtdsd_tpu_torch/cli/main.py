@@ -18,9 +18,10 @@
         --score_all_folder_path runs/ [--comment base]
 
 The device defaults to ``cuda``; without a GPU the run raises unless
-``--device cpu`` is given. ``--ckpt`` is a reference-format ``.pt``
-(``rtdsd_tpu.models.export_reference`` writes one from a JAX checkpoint;
-a JAX checkpoint directory raises and says so). ``--w8`` scores with int8
+``--device cpu`` is given. ``--ckpt`` is a reference-format ``.pt``, one
+of the port's checkpoint directories (``engine/checkpoint.py``) or one of
+the JAX package's (``state.msgpack`` or ``weights.msgpack``; an orbax
+directory raises and names the route that works). ``--w8`` scores with int8
 transformer weights and ``--w8a8`` with int8 weights and int8 activations
 (``ExpConfig.w8_scoring`` / ``w8a8_scoring`` turn them on too); the
 weights are quantized after the load, on the run's device. The cascade's
@@ -28,11 +29,13 @@ screener takes its model, kwargs, duration and quantization flags from
 ``--cascade_config`` (default: ``--config``) and its dataset paths from
 ``--config``; trials with ``|screener score - center| <= band`` are scored
 again by ``--ckpt``'s model. ``--score_all_folder_path`` scores each entry
-with the comment ``{comment}_{name}`` (or ``name``). ``--ckpt`` also takes
-the port's own checkpoint directories (``engine/checkpoint.py``).
+with the comment ``{comment}_{name}`` (or ``name``).
 
-Training (no ``--is_eval``) trains the XLSR_AASIST family on the ASVspoof
-2019 LA train set, a dev pass each epoch, as the JAX CLI does: a
+Training (no ``--is_eval``) trains the XLSR_AASIST and XLSR_Conformer
+families on the ASVspoof 2019 LA train set, the encoder initialised from
+``ssl_pytree_path`` (a JAX pytree directory, as ``cli.convert`` writes it,
+or an HF snapshot) or ``ssl_ckpt_path`` (a fairseq ``.pt``), a dev pass
+each epoch, as the JAX CLI does: a
 ``best_LA_epoch{e}_{loss}_{acc}`` checkpoint when the dev loss improves
 with accuracy above 95 or a new best accuracy above 95 comes in another
 epoch, the rolling ``last`` checkpoint every epoch, and early stopping on
@@ -128,15 +131,9 @@ def validate_tracks(tracks) -> None:
                              f"have {sorted(TRACK_DATASETS)}")
 
 
-TRAINABLE = ("XLSR_AASIST", "My_XLSR_AASIST")
-
-
 def run_train(args, sys_config, exp_config, device):
-    """The JAX CLI's train path on one device (see the module docstring)."""
-    if sys_config.model not in TRAINABLE:
-        raise NotImplementedError(
-            f"training {sys_config.model!r} is not yet ported (ROADMAP Queue "
-            f"1, item 7: Conformer train mode); the port trains {TRAINABLE}")
+    """The JAX CLI's train path on one device (see the module docstring);
+    every registered model trains."""
     seed = exp_config.random_seed
     save_dir = sys_config.path_to_save_model
     logger = Logger(sys_config, metrics_path=os.path.join(save_dir,

@@ -4,7 +4,9 @@ eval tracks.
 
 Every item is repeat-tiled and cut to exactly ``duration`` samples (whole
 copies, then the residue prefix, then the first or a random window), as the
-reference's ``adjustDuration`` does.
+reference's ``adjustDuration`` does. A dataset's ``host_augment``
+(:mod:`rtdsd_tpu_torch.data.host_augment`) runs after that fit, on both
+loader paths.
 """
 
 from __future__ import annotations
@@ -55,11 +57,13 @@ class AudioDataset:
     label)."""
 
     def __init__(self, trials: Sequence[Trial], duration: int,
-                 is_random_start: bool = False, sample_rate: int = 16000):
+                 is_random_start: bool = False, sample_rate: int = 16000,
+                 host_augment=None):
         self.trials = list(trials)
         self.duration = int(duration)
         self.is_random_start = is_random_start
         self.sample_rate = sample_rate
+        self.host_augment = host_augment
 
     def __len__(self) -> int:
         return len(self.trials)
@@ -74,14 +78,18 @@ class AudioDataset:
             wave = adjust_duration_random_start(wave, self.duration, rng)
         else:
             wave = adjust_duration(wave, self.duration)
+        if self.host_augment is not None and rng is not None:
+            wave = self.host_augment(wave, rng)
         return t.utt_id, wave.astype(np.float32), t.label
 
 
 class ASVspoof2019LA(AudioDataset):
     """The ASVspoof 2019 LA train set (``is_train``, random-start crops when
     ``is_random_start``) or dev set (first-N crops), at the train duration.
-    The host-side mul_augment chain of the JAX package is not ported: the
-    train step refuses a config that needs it."""
+    The train set carries the host half of the ``mul_augment`` chain when
+    that is configured and no RawBoost code is (the reference's if/elif;
+    ``allow_data_augmentation`` does not gate it), built even without a
+    noise corpus so that a missing MP3 codec is reported."""
 
     def __init__(self, sys_config: SysConfig, exp_config: ExpConfig,
                  is_train: bool = True):
@@ -96,9 +104,19 @@ class ASVspoof2019LA(AudioDataset):
                 label_path, audio_dir,
                 include_non_speech=exp_config.include_non_speech,
                 include_residual=exp_config.include_residual)
+        da = list(exp_config.data_augmentation or [])
+        host_chain = None
+        if is_train and "mul_augment" in da:
+            from rtdsd_tpu_torch.data.host_augment import build_host_chain
+            from rtdsd_tpu_torch.engine.steps import pick_rawboost_algo
+
+            if pick_rawboost_algo(da) is None:
+                host_chain = build_host_chain(sys_config.noise_path,
+                                              exp_config.sample_rate)
         super().__init__(trials, exp_config.train_duration_samples,
                          is_random_start=is_train and exp_config.is_random_start,
-                         sample_rate=exp_config.sample_rate)
+                         sample_rate=exp_config.sample_rate,
+                         host_augment=host_chain)
 
 
 class ASVspoof2019LA_eval(AudioDataset):

@@ -17,6 +17,10 @@ crop generator ``numpy.random.default_rng((seed, epoch, 0))`` (process 0):
 - Python (``use_native=False``): ``AudioDataset.get`` row by row, one draw
   a row for a random start, polyphase resampling.
 
+A dataset's ``host_augment`` draws from the same generator after the crop:
+row by row inside ``get`` on the Python path, over the padded batch on the
+native one, as the JAX loader does.
+
 Decode runs on the calling thread: the scoring loop leaves the GPU working
 asynchronously meanwhile.
 """
@@ -128,6 +132,9 @@ class DataLoader:
             reps = self.batch_size - valid
             waves = np.concatenate([waves, np.repeat(waves[-1:], reps, axis=0)])
             trials = trials + [trials[-1]] * reps
+        aug = self.dataset.host_augment
+        if aug is not None:
+            waves = np.stack([aug(w, rng) for w in waves])
         return Batch([t.utt_id for t in trials], waves,
                      np.asarray([t.label for t in trials], np.int32), valid)
 

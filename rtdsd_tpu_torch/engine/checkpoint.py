@@ -7,6 +7,12 @@ the step and the epoch) and ``meta.json``. Both are written to a temporary
 file first and moved into place with ``os.replace``, so a crash mid-save
 leaves the previous checkpoint whole. Restoring the full state resumes a run
 exactly. Saves are synchronous.
+
+The JAX package's checkpoint directories are read for their model only
+(:func:`load_jax_variables`): ``state.msgpack`` (flax's bytes of ``step``,
+``params``, ``batch_stats``, ``opt_state``) and the weights-only
+``weights.msgpack``. Its orbax directories raise: reading them needs orbax
+and tensorstore.
 """
 
 from __future__ import annotations
@@ -18,8 +24,11 @@ from typing import Optional
 import torch
 
 from rtdsd_tpu_torch.engine.steps import TrainState
+from rtdsd_tpu_torch.utils import flax_msgpack
 
 STATE = "state.pt"
+JAX_STATE, JAX_WEIGHTS = "state.msgpack", "weights.msgpack"
+ORBAX = ("orbax", "orbax.prev")
 
 
 def _replace_into(path: str, name: str, write) -> None:
@@ -64,3 +73,29 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
 def load_model_state(path: str) -> dict:
     """The model's state dict of the checkpoint directory ``path``."""
     return _load(path)["model"]
+
+
+def load_jax_variables(path: str) -> dict:
+    """``{'params', 'batch_stats'}`` of one of the JAX package's checkpoint
+    directories, with its precedence: an orbax directory first (it raises
+    here), then ``state.msgpack``, then ``weights.msgpack``."""
+    if any(os.path.exists(os.path.join(path, n)) for n in ORBAX):
+        raise NotImplementedError(
+            f"{path}: the JAX package's orbax checkpoints need orbax and "
+            "tensorstore, which the port does not use; on a JAX install, "
+            "write a reference .pt with "
+            "rtdsd_tpu/models/export_reference.py::export_reference_model "
+            "(or save the state with the synchronous msgpack writer) and "
+            "load that")
+    for name in (JAX_STATE, JAX_WEIGHTS):
+        if os.path.isfile(os.path.join(path, name)):
+            tree = flax_msgpack.read(os.path.join(path, name))
+            if not tree.get("batch_stats"):
+                raise ValueError(
+                    f"{os.path.join(path, name)} holds no batch_stats: it is "
+                    "not a whole model's checkpoint (an SSL pytree goes in "
+                    "ssl_pytree_path)")
+            return {"params": tree["params"], "batch_stats": tree["batch_stats"]}
+    raise FileNotFoundError(
+        f"{path}: neither the port's {STATE} nor the JAX package's "
+        f"{JAX_STATE} / {JAX_WEIGHTS} is in this directory")

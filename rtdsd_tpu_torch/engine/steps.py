@@ -1,9 +1,13 @@
 """Train, eval and score steps: the port of ``rtdsd_tpu/engine/steps.py``.
 
-A train step is RawBoost -> pre-emphasis -> train-mode forward -> weighted
+A train step is augmentation -> train-mode forward -> weighted
 cross-entropy -> backward -> AdamW step, all on the model's device; its
-metrics stay there until the caller reads them. Its randomness (RawBoost's
-draws and the dropout masks) comes from generators seeded by (seed, step),
+metrics stay there until the caller reads them. The augmentation runs in
+the order of the JAX package's ``_preprocess_train``: RawBoost, or else
+the dataset-side ``mul_augment`` chain's device half, then pre-emphasis,
+then the trainer-side chain (gated by ``allow_data_augmentation``). Its
+randomness (the augmentations' draws and the dropout masks) comes from
+generators seeded by (seed, step),
 as the JAX step folds the step into its key, so a resumed run draws what an
 unbroken one draws. The eval step applies pre-emphasis, as the reference's
 dev pass does; the score step does not, as its score files are made.
@@ -30,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rtdsd_tpu_torch.models import dropout
+from rtdsd_tpu_torch.ops.augment import augment
 from rtdsd_tpu_torch.ops.preemphasis import pre_emphasis
 from rtdsd_tpu_torch.ops.rawboost import RawBoostArgs, rawboost
 
@@ -215,23 +220,24 @@ def make_train_step(*, ce_weight: Optional[Sequence[float]] = (0.9, 0.1),
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(state, waves, labels, seed) -> {loss, num_correct}``: one
     AdamW step on ``state`` (its step count advances), waves (B, T) float32
-    and labels (B,) on the model's device. RawBoost runs on the
-    static-shape crop, as in the JAX package."""
-    if pre_aug_list or aug_list:
-        raise NotImplementedError(
-            f"the augmentations {list(pre_aug_list) + list(aug_list)} "
-            f"(ops/augment.py, data/host_augment.py) are not yet ported "
-            f"({_DEFERRED}); train with a RawBoost code or none")
+    and labels (B,) on the model's device. RawBoost (or the ``pre_aug_list``
+    chain) runs on the static-shape crop before pre-emphasis and the
+    ``aug_list`` chain after it, as in the JAX package; all draw from one
+    generator seeded by the step's augmentation seed."""
 
     def step(state: TrainState, waves: torch.Tensor, labels: torch.Tensor,
              seed: int) -> Dict[str, torch.Tensor]:
         k_aug, k_drop = step_seeds(seed, state.step)
+        gen = torch.Generator(device=waves.device).manual_seed(k_aug)
         if rawboost_algo is not None and 1 <= rawboost_algo <= 8:
-            gen = torch.Generator(device=waves.device).manual_seed(k_aug)
             waves = rawboost(waves, rawboost_algo, gen, RawBoostArgs(),
                              sample_rate)
+        elif pre_aug_list:
+            waves = augment(waves, pre_aug_list, gen, sample_rate)
         if preemph is not None:
             waves = pre_emphasis(waves, preemph)
+        if aug_list:
+            waves = augment(waves, aug_list, gen, sample_rate)
         model, opt = state.model, state.optimizer
         model.train()
         logits = model(waves, src=dropout.source(k_drop))

@@ -1,4 +1,4 @@
-"""Conformer classifier head in PyTorch, eval mode: the port of
+"""Conformer classifier head in PyTorch: the port of
 ``rtdsd_tpu/models/conformer.py``.
 
     XLSR features (B, T, F) -> LL -> BatchNorm2d(1) -> SELU
@@ -23,6 +23,15 @@ As in the JAX package, parameters stay float32, matmuls and convolutions
 run in the compute dtype, and LayerNorm and BatchNorm compute in float32.
 The head's parts are plain PyTorch, as they are XLA ops (not Pallas) in
 JAX: the relative-position term is not part of ``mha_small_t``'s function.
+
+Train mode (``module.train()``) follows the JAX module's ``train=True``:
+batch-statistics BatchNorm in ``first_bn`` and the conv module, with
+flax's biased running-variance update (``aasist.batch_norm``), and dropout
+at the JAX sites (after the feed-forward's SiLU and its second linear, the
+attention's output projection, the conv module's output) at the JAX
+modules' rate, ``DROPOUT``, which the zoo never sets: 0, so no mask is
+drawn. ``src`` is the dropout seed source of a train forward
+(:mod:`.dropout`).
 """
 
 from __future__ import annotations
@@ -31,18 +40,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rtdsd_tpu_torch.models import dropout
 from rtdsd_tpu_torch.models.aasist import batch_norm
 from rtdsd_tpu_torch.models.wav2vec2 import LN_EPS, _HALF, layer_norm, linear
 
 BN_EPS = 1e-5
 MAX_POS_EMB = 512
+DROPOUT = 0.0       # the JAX modules' default rate, which the zoo keeps
 
 
-def eval_only(module: nn.Module) -> None:
-    """The port's models have an eval forward only."""
-    if module.training:
-        raise NotImplementedError("training is not yet ported; call "
-                                  ".eval() on the model")
+def _drop(module: nn.Module, x: torch.Tensor, src) -> torch.Tensor:
+    return dropout.drop(x, DROPOUT, src) if module.training else x
 
 
 def pointwise(x: torch.Tensor, conv: nn.Conv1d, dtype: torch.dtype
@@ -54,16 +62,18 @@ def pointwise(x: torch.Tensor, conv: nn.Conv1d, dtype: torch.dtype
 
 
 class FeedForward(nn.Module):
-    """``net.0`` Linear -> SiLU -> ``net.3`` Linear (dropout slots 2, 4)."""
+    """``net.0`` Linear -> SiLU -> dropout -> ``net.3`` Linear -> dropout
+    (slots 2 and 4 hold no parameters)."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.Sequential(nn.Linear(dim, dim * mult), nn.SiLU(),
                                  nn.Identity(), nn.Linear(dim * mult, dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, src=None) -> torch.Tensor:
         dt = x.dtype
-        return linear(F.silu(linear(x, self.net[0], dt)), self.net[3], dt)
+        h = _drop(self, F.silu(linear(x, self.net[0], dt)), src)
+        return _drop(self, linear(h, self.net[3], dt), src)
 
 
 class PreNorm(nn.Module):
@@ -74,8 +84,8 @@ class PreNorm(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.fn = fn
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fn(layer_norm(x, self.norm, x.dtype))
+    def forward(self, x: torch.Tensor, src=None) -> torch.Tensor:
+        return self.fn(layer_norm(x, self.norm, x.dtype), src)
 
 
 class Scale(nn.Module):
@@ -85,8 +95,8 @@ class Scale(nn.Module):
         super().__init__()
         self.scale, self.fn = scale, fn
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.scale * self.fn(x)
+    def forward(self, x: torch.Tensor, src=None) -> torch.Tensor:
+        return self.scale * self.fn(x, src)
 
 
 class ConformerAttention(nn.Module):
@@ -103,7 +113,7 @@ class ConformerAttention(nn.Module):
         self.to_out = nn.Linear(inner, dim)
         self.rel_pos_emb = nn.Embedding(2 * max_pos_emb + 1, dim_head)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, src=None) -> torch.Tensor:
         dt = x.dtype
         b, n, _ = x.shape
         h, dh = self.heads, self.dim_head
@@ -118,7 +128,8 @@ class ConformerAttention(nn.Module):
         rel = self.rel_pos_emb.weight.to(dt)[dist]                  # (n, n, dh)
         dots = dots + torch.einsum("bhid,ijd->bhij", q, rel) * scale
         out = torch.einsum("bhij,bhjd->bhid", torch.softmax(dots, dim=-1), v)
-        return linear(out.transpose(1, 2).reshape(b, n, h * dh), self.to_out, dt)
+        out = linear(out.transpose(1, 2).reshape(b, n, h * dh), self.to_out, dt)
+        return _drop(self, out, src)
 
 
 class DepthWiseConv1d(nn.Module):
@@ -161,13 +172,13 @@ class ConformerConvModule(nn.Module):
         xt = F.pad(xt, (k // 2, k // 2 - (k + 1) % 2))
         return F.conv1d(xt, w, b, groups=conv.groups).to(dt).transpose(1, 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, src=None) -> torch.Tensor:
         dt, net = x.dtype, self.net
         x = pointwise(layer_norm(x, net[0], dt), net[2], dt)
         a, g = x.chunk(2, dim=-1)
         x = self.depthwise(a * torch.sigmoid(g))                     # GLU
         x = F.silu(batch_norm(x, net[5], dt, channel_dim=-1))
-        return pointwise(x, net[7], dt)
+        return _drop(self, pointwise(x, net[7], dt), src)
 
 
 class ConformerBlock(nn.Module):
@@ -182,12 +193,11 @@ class ConformerBlock(nn.Module):
         self.ff2 = Scale(0.5, PreNorm(dim, FeedForward(dim, ff_mult)))
         self.post_norm = nn.LayerNorm(dim, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        eval_only(self)
-        x = x + self.ff1(x)
-        x = x + self.attn(x)
-        x = x + self.conv(x)
-        x = x + self.ff2(x)
+    def forward(self, x: torch.Tensor, src=None) -> torch.Tensor:
+        x = x + self.ff1(x, src)
+        x = x + self.attn(x, src)
+        x = x + self.conv(x, src)
+        x = x + self.ff2(x, src)
         return layer_norm(x, self.post_norm, x.dtype)
 
 
@@ -204,12 +214,12 @@ class MyConformer(nn.Module):
         self.class_token = nn.Parameter(torch.rand(1, emb_size))
         self.fc5 = nn.Linear(emb_size, num_classes)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, src=None):
         dt = x.dtype
         token = self.class_token.to(dt)[None].expand(x.shape[0], -1, -1)
         x = torch.cat([token, x], dim=1)
         for block in self.encoder_blocks:
-            x = block(x)
+            x = block(x, src)
         embedding = x[:, 0, :]
         return linear(embedding, self.fc5, dt), embedding
 
@@ -229,9 +239,9 @@ class ConformerBackend(nn.Module):
         self.conformer = MyConformer(emb_size, heads, kernel_size=kernel_size,
                                      n_encoders=n_encoders)
 
-    def forward(self, feats: torch.Tensor) -> torch.Tensor:
-        eval_only(self)
+    def forward(self, feats: torch.Tensor, src=None) -> torch.Tensor:
+        """``src``: the dropout seed source of a train forward."""
         dt = self.dtype
         x = linear(feats, self.LL, dt)
         x = F.selu(batch_norm(x[:, None], self.first_bn, dt)[:, 0])
-        return self.conformer(x)[0]
+        return self.conformer(x, src)[0]

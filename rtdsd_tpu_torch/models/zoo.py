@@ -8,8 +8,8 @@ by the Conformer head, its modules (``LL``, ``first_bn``, ``conformer``) at
 the top level too. The pruned students (``My_XLSR_AASIST``,
 ``My_XLSR_Conformer``) are the same graphs with fewer ``encoder_layers``.
 
-``XLSR_AASIST`` trains (``model.train()``, a dropout seed source ``src``,
-``remat`` for the encoder's layers); ``XLSR_Conformer`` is eval-only.
+Both train (``model.train()``, a dropout seed source ``src``, ``remat``
+for the encoder's layers).
 :func:`init_weights` gives a freshly built model the JAX package's
 initialisers, for the parts a checkpoint does not fill.
 """
@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from rtdsd_tpu_torch.models.aasist import AASISTBackend
-from rtdsd_tpu_torch.models.conformer import ConformerBackend, eval_only
+from rtdsd_tpu_torch.models.conformer import ConformerBackend
 from rtdsd_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
 
 
@@ -66,7 +66,8 @@ class XLSR_AASIST(AASISTBackend):
 
 class XLSR_Conformer(ConformerBackend):
     """Wave (B, T) or (B, T, 1), or ``None`` with ``conv_feats`` (B,
-    frames, C), -> logits (B, 2). Eval mode only."""
+    frames, C), -> logits (B, 2). In train mode ``src`` is the dropout seed
+    source (:mod:`.dropout`)."""
 
     def __init__(self, w2v_cfg: Wav2Vec2Config = Wav2Vec2Config(),
                  emb_size: int = 144, heads: int = 4, kernel_size: int = 31,
@@ -80,9 +81,9 @@ class XLSR_Conformer(ConformerBackend):
         self.ssl_model = SSLModel(w2v_cfg, dtype, remat)
 
     def forward(self, wave: Optional[torch.Tensor], *,
-                conv_feats: Optional[torch.Tensor] = None) -> torch.Tensor:
-        eval_only(self)
-        return super().forward(_features(self, wave, conv_feats))
+                conv_feats: Optional[torch.Tensor] = None,
+                src: Optional[torch.Generator] = None) -> torch.Tensor:
+        return super().forward(_features(self, wave, conv_feats, src), src)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:

@@ -23,7 +23,7 @@ from rtdsd_tpu.models import conformer as jax_conformer
 from rtdsd_tpu.models import registry as jax_registry
 from rtdsd_tpu.models.export_reference import export_reference_model
 from _torch_track import random_variables
-from rtdsd_tpu_torch.models import conformer, convert, registry
+from rtdsd_tpu_torch.models import conformer, convert, dropout, registry
 
 W2V = {"encoder_embed_dim": 32, "encoder_ffn_dim": 64, "encoder_heads": 4,
        "conv_pos": 16, "conv_pos_groups": 4,
@@ -191,5 +191,9 @@ def test_registry_names(name, spec_name, n_layers):
     assert len(spec.module.ssl_model.model.encoder.layers) == n_layers
     blocks = spec.module.conformer.encoder_blocks
     assert len(blocks) == 2 and blocks[0].conv.net[4].conv.kernel_size == (16,)
-    with pytest.raises(NotImplementedError, match="training"):
-        spec.module.train()(torch.zeros(1, SAMPLES))
+    # train mode: a forward with batch statistics, which moves first_bn's
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, SAMPLES)).astype(np.float32))
+    out = spec.module.train()(x, src=dropout.source(0))
+    assert out.shape == (2, 2) and torch.isfinite(out).all()
+    assert int(spec.module.first_bn.num_batches_tracked) == 1

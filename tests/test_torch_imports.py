@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``rtdsd_tpu_torch`` and no line of
-``chip_smoke.py`` imports JAX, flax, optax or the JAX package, and its entry
-points pick the GPU unless told otherwise."""
+``chip_smoke.py`` imports JAX, flax, optax, msgpack, safetensors, orbax,
+transformers or the JAX package (the GPU machine has none of them), and its
+entry points pick the GPU unless told otherwise."""
 
 import ast
 import glob
@@ -14,7 +15,8 @@ import torch
 from rtdsd_tpu_torch.device import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rtdsd_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "safetensors",
+             "orbax", "transformers", "rtdsd_tpu")
 
 
 def _port_files():
@@ -45,7 +47,9 @@ def test_cli_import_loads_no_jax():
     code = ("import sys, rtdsd_tpu_torch.cli.main, rtdsd_tpu_torch.ops.gat, "
             "rtdsd_tpu_torch.cli.stream, rtdsd_tpu_torch.cli.serve, "
             "rtdsd_tpu_torch.engine.serving, rtdsd_tpu_torch.cli.daemon, "
-            "rtdsd_tpu_torch.engine.netserve, rtdsd_tpu_torch.native.client; "
+            "rtdsd_tpu_torch.engine.netserve, rtdsd_tpu_torch.native.client, "
+            "rtdsd_tpu_torch.cli.convert, rtdsd_tpu_torch.ops.augment, "
+            "rtdsd_tpu_torch.data.host_augment; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -434,10 +434,6 @@ DEFERRED = {
     "remat_save_every": lambda m: registry.get_model(
         "My_XLSR_AASIST", remat=True, num_layers=2,
         w2v=dict(W2V, remat_save_every=2)),
-    "mul_augment": lambda m: steps.make_train_step(
-        pre_aug_list=steps.pre_device_augs(["mul_augment"])),
-    "trainer_side_augs": lambda m: steps.make_train_step(
-        aug_list=steps.post_device_augs(["ACN", "LPF"], True)),
 }
 
 

@@ -259,9 +259,15 @@ def test_init_state_selects_student_layers(corpus):
         key = "encoder.layers.{}.fc1.weight"
         assert torch.equal(enc[key.format(new)], full[key.format(old)])
     assert state.model.training and spec.module.ssl_model.model.encoder.remat
-    sysc.ssl_pytree_path = "pretrained/xlsr_jax"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
-        init_state(spec, sysc, exp, seed=1)
+    # the same checkpoint as a pytree directory (ssl_pytree_path, which
+    # takes precedence) gives the same encoder
+    from rtdsd_tpu_torch.cli import convert as port_convert
+
+    port_convert.main(["--fairseq", pt, "--out", pt + ".pytree"])
+    sysc.ssl_pytree_path = pt + ".pytree"
+    again = init_state(build_model(sysc, exp, torch.device("cpu"), train=True),
+                       sysc, exp, seed=1).model.ssl_model.model.state_dict()
+    assert all(torch.equal(again[k], t) for k, t in enc.items())
 
 
 # ------------------------------------------------------------- CLI
@@ -292,15 +298,17 @@ def test_cli_train_probes(corpus, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_main.main(["--config", cfg, "--max_epoch", "1"])
-    raw["SysConfig"]["model"] = "My_XLSR_Conformer"
-    conf = tmp_path / "conformer.json"
+    # adafactor waits (ROADMAP Queue 1, item 7); the CLI says so
+    raw["ExpConfig"]["optimizer"] = "adafactor"
+    conf = tmp_path / "adafactor.json"
     conf.write_text(json.dumps(raw))
     with pytest.raises(NotImplementedError, match="item 7"):
         port_main.main(["--config", str(conf), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        from rtdsd_tpu_torch.cli.common import load_checkpoint_for_eval
+    # a directory without a checkpoint the port or the JAX package writes
+    from rtdsd_tpu_torch.cli.common import load_checkpoint_for_eval
 
-        (tmp_path / "jaxdir").mkdir()
+    (tmp_path / "jaxdir").mkdir()
+    with pytest.raises(FileNotFoundError, match="state.msgpack"):
         load_checkpoint_for_eval(str(tmp_path / "jaxdir"),
                                  registry.get_model("My_XLSR_AASIST", **KWARGS))
 
