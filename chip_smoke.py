@@ -183,6 +183,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       launches, busy share, device ms by kernel class, the chains' own
       device ms profiled alone on the batch, and the host chain's ms a
       batch of 32 clips;
+   l. (run before k, which deletes 4j's SSL ``.pt``) knowledge
+      distillation, ``configs/kd_xlsr6_aasist.yaml``'s recipe:
+      (a) ``rtdsd_tpu_torch.cli.main_kd --max_epoch 1`` in bf16 with the
+      seed-0 XLSR_AASIST ``.pt`` as the teacher and the My_XLSR_AASIST
+      student on teacher layers 0-4 and 23 (the recipe's ``kd_kwargs``:
+      KDLoss at T 4 on the logits, MSE of student layer 5 against teacher
+      layer 23, weights 0.5 and 1.0, the copy in that order; ``fused_gat``
+      and ``fast_softmax: false`` added), RawBoost4, 4j's clips cut to
+      1 s, batch 32, the student's SSL init from 4j's fairseq ``.pt``:
+      right after the copy, before the first step, the student's layer j
+      equals teacher layer [0, 1, 2, 3, 4, 23][j] and every other
+      parameter the teacher's, bit for bit, and its BatchNorm statistics
+      are at their init; launches exactly 36 ``mha_small_t`` (24 teacher,
+      6 + 6 student forward and recompute) and 2 / 4 GAT (the teacher's)
+      a step, 6 / 2 / 4 in the dev batch; finite logged terms,
+      ``last_kd/`` and one ``student_best_epoch0_*``; then ``--is_eval
+      --eval student --is_score`` from ``last_kd/`` in bf16 and
+      ``--w8a8``: 32 finite scores, (6, 2, 4) and 36 ``quantize_int8``;
+      (b) one float32 KD step (TF32 off, deterministic algorithms) at
+      batch 4, a 4-layer full-width teacher and a 2-layer student (layers
+      0 and 3), the kernels against the plain versions: every loss term
+      within 1e-4, gradients and AdamW's moments as 4j (a), the teacher
+      bit for bit unchanged, and every kernel call of a third step held
+      to its plain version; (c) bf16 KD steps of the recipe at batch 32:
+      ms (median [min, max] of 5 after 2 warm-ups),
+      ``max_memory_allocated``, one step's launches, busy share, device ms
+      by kernel class and the teacher's forward alone; (d) 4j's bf16
+      train step with AdamW, ``adam_mu_dtype: bfloat16`` and Adafactor:
+      ms a step and the allocator's peak (information);
 5. one full-width float32 batch with the kernels against the same batch
    with every kernel swapped for its plain version (TF32 off): logits agree,
    for XLSR_AASIST and for XLSR_Conformer;
@@ -199,7 +228,8 @@ It prints a ``{"kernels": [...]}`` line (``stream_launches``: the launches
 of the four runs of 4g together; ``serve_launches``: of the three CLI runs
 of 4h; ``daemon_launches``: of the daemon CLI run of 4i (b);
 ``train_launches``: of the train CLI run of 4j;
-``conformer_train_launches``: of the Conformer train CLI run of 4k), the
+``conformer_train_launches``: of the Conformer train CLI run of 4k;
+``kd_launches``: of the KD CLI epoch of 4l), the
 ``nvidia-smi`` name and power limit
 line, and as its last line ``{"ok": true, "device": {...}}``. Scratch
 files go to ``build/chip_smoke/`` in the checkout.
@@ -3041,6 +3071,448 @@ def conformer_train_path(ssl_pt: str, dev, card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 4l
+
+KD_RECIPE = os.path.join("configs", "kd_xlsr6_aasist.yaml")
+KD_SAMPLES = 16000                  # the recipe's 1 s crops
+KD_ORDER = [0, 1, 2, 3, 4, 23]      # the recipe's student layers
+# on the card every kernel of the path: fused GAT, the attention kernel
+KD_MODEL_KWARGS = {"fused_gat": True, "w2v": {"fast_softmax": False}}
+# the float32 kernels-vs-plain KD step: a 4-layer teacher (the first four
+# layers at full width, the gate of 4j (a)) and a 2-layer student
+KD_PARITY_ORDER = [0, 3]
+KD_PARITY_KWARGS = {
+    "ce_loss_weight": 1.0,
+    "kd_criterions": [
+        {"key": "KDLoss", "kwargs": {"student_module_path": "logits",
+                                     "teacher_module_path": "logits",
+                                     "temperature": 4.0}},
+        {"key": "MSELoss", "kwargs": {
+            "student_module_path": "ssl_model.model.encoder.layers.1",
+            "teacher_module_path": "ssl_model.model.encoder.layers.3"}}],
+    "kd_criterion_weights": [0.5, 1.0]}
+KD_OPT_STEPS = 3                    # timed steps of each optimizer in 4l (d)
+
+
+def kd_recipe() -> tuple:
+    """(ExpConfig, kd_kwargs) of ``configs/kd_xlsr6_aasist.yaml``, its
+    student kwargs with the kernels on the path."""
+    from rtdsd_tpu_torch.config import load_yaml_config
+
+    _, exp = load_yaml_config(os.path.join(ROOT, KD_RECIPE))
+    kd = json.loads(json.dumps(exp.kd_kwargs))
+    kd["student_kwargs"] = {**kd["student_kwargs"], **KD_MODEL_KWARGS}
+    return exp, kd
+
+
+def write_kd_config(root: str, ssl_pt: str) -> str:
+    """The recipe (XLSR_AASIST teacher, My_XLSR_AASIST student, its
+    kd_kwargs, RawBoost4, lr, 1 s crops) on 4j's clips at batch 32, bf16,
+    the student's SSL init from 4j's fairseq ``.pt``."""
+    exp, kd = kd_recipe()
+    audio = os.path.join(root, "audio")
+    cfg = {"SysConfig": {
+        "model": "XLSR_AASIST", "student_model": "My_XLSR_AASIST",
+        "wandb_disabled": True, "num_workers": 4,
+        "path_label_asv_spoof_2019_la_train": os.path.join(root, "LA_T.txt"),
+        "path_asv_spoof_2019_la_train": audio,
+        "path_label_asv_spoof_2019_la_dev": os.path.join(root, "LA_D.txt"),
+        "path_asv_spoof_2019_la_dev": audio,
+        "path_label_asv_spoof_2019_la_eval": os.path.join(root, "LA_D.txt"),
+        "path_asv_spoof_2019_la_eval": audio,
+        "la19_score_save_path": os.path.join(root, "kd_scores_la19.txt"),
+        "path_to_save_model": os.path.join(root, "kd_runs"),
+        "ssl_ckpt_path": ssl_pt, "ssl_pytree_path": ""},
+        "ExpConfig": {
+            "random_seed": exp.random_seed,
+            "train_duration_sec": exp.train_duration_sec,
+            "test_duration_sec": exp.test_duration_sec,
+            "la19_eval_random_start": False,
+            "batch_size_train": TRAIN_BATCH, "batch_size_test": TRAIN_BATCH,
+            "lr": exp.lr, "weight_decay": exp.weight_decay,
+            "allow_data_augmentation": exp.allow_data_augmentation,
+            "data_augmentation": list(exp.data_augmentation),
+            "compute_dtype": exp.compute_dtype, "kwargs": KD_MODEL_KWARGS,
+            "kd_kwargs": kd}}
+    path = os.path.join(root, "kd.json")
+    with open(path, "w") as f:
+        # PyYAML reads 1e-06 as a string: YAML 1.1 floats need a dot
+        f.write(json.dumps(cfg, indent=1).replace(": 1e-06", ": 1.0e-06"))
+    return path
+
+
+@contextlib.contextmanager
+def copy_checked(found: dict):
+    """Wrap the KD CLI's teacher-to-student copy: right after it, before
+    the first step, the student's layer j must equal the teacher's layer
+    ``indices[j]`` bit for bit, every other student parameter the
+    teacher's of its name, and its BatchNorm statistics their init."""
+    from rtdsd_tpu_torch.cli import main_kd
+
+    saved = main_kd.copy_teacher_weights
+
+    def checked(student, teacher, indices):
+        copied = saved(student, teacher, indices)
+        s_sd, t_sd = student.state_dict(), teacher.state_dict()
+        layer = "ssl_model.model.encoder.layers."
+        unequal, stats_moved = [], []
+        for k, v in s_sd.items():
+            if k.endswith(("running_mean", "running_var", "num_batches_tracked")):
+                init = 1 if k.endswith("running_var") else 0
+                if not torch.equal(v, torch.full_like(v, init)):
+                    stats_moved.append(k)
+                continue
+            src = k
+            if k.startswith(layer):
+                j, rest = k[len(layer):].split(".", 1)
+                src = f"{layer}{indices[int(j)]}.{rest}"
+            if not torch.equal(v, t_sd[src]):
+                unequal.append(k)
+        found.update(indices=list(indices), copied=len(copied),
+                     params=len(list(student.parameters())),
+                     unequal=unequal, stats_moved=stats_moved)
+        return copied
+
+    main_kd.copy_teacher_weights = checked
+    try:
+        yield
+    finally:
+        main_kd.copy_teacher_weights = saved
+
+
+def kd_cli(ckpt: str, ssl_pt: str, card: str) -> dict:
+    """4l (a): ``cli.main_kd --max_epoch 1`` with the seed-0 full-width
+    XLSR_AASIST as the teacher (``--ckpt``, a reference ``.pt``) and the
+    recipe's student, then ``--is_eval --eval student --is_score`` from
+    ``last_kd/`` in bf16 and ``--w8a8``, each with the counters zeroed
+    just before; -> the epoch's launches."""
+    from rtdsd_tpu_torch.cli import main_kd
+
+    root = os.path.join(WORK, "train")
+    cfg = write_kd_config(root, ssl_pt)
+    found = {}
+    reset_counters()
+    t0 = time.perf_counter()
+    with copy_checked(found):
+        main_kd.main(["--config", cfg, "--ckpt", ckpt, "--max_epoch", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    steps_, dev_batches = TRAIN_CLIPS // TRAIN_BATCH, -(-DEV_CLIPS // TRAIN_BATCH)
+    want = launches_want((24 + 6 + 6) * steps_ + 6 * dev_batches,
+                         steps_ + dev_batches)
+    runs = os.path.join(root, "kd_runs")
+    with open(os.path.join(runs, "kd_metrics.jsonl")) as f:
+        recs = [json.loads(l) for l in f]
+    step_recs = [r for r in recs if "total_loss" in r]
+    terms = ("total_loss", "ce_loss", "KDLoss_logits_logits",
+             "MSELoss_ssl_hidden:5_ssl_hidden:23")
+    last = os.path.join(runs, "last_kd")
+    best = [n for n in os.listdir(runs) if n.startswith("student_best_epoch0_")]
+    log(f"4l (a) KD CLI (bf16, XLSR_AASIST teacher from the seed-0 .pt, "
+        f"My_XLSR_AASIST student, {KD_RECIPE}'s kd_kwargs + fused_gat and "
+        f"fast_softmax off, RawBoost4, batch {TRAIN_BATCH}, 1 s crops, 1 "
+        f"epoch: {steps_} steps + {dev_batches} dev batch): copy before the "
+        f"first step {found}; {card}: launches {launches} (want {want}: 24 teacher "
+        f"+ 6 + 6 student forward and recompute attention and 2 + 4 teacher "
+        f"GAT a step, 6, 2, 4 a dev batch); logged "
+        + "; ".join(", ".join(f"{k} {r[k]:.5g}" for k in terms)
+                    for r in step_recs)
+        + f"; dev {[(r['Dev Loss'], r['Dev Acc']) for r in recs if 'Dev Loss' in r]}"
+        f"; last_kd/ {sorted(os.listdir(last))}, {best}; wall {wall:.1f} s "
+        f"incl. the teacher load, the student's SSL load and the saves")
+    if (found.get("indices") != KD_ORDER or found["unequal"]
+            or found["stats_moved"] or found["copied"] != found["params"]):
+        raise RuntimeError(f"4l (a): the teacher-to-student copy: {found}")
+    if launches != want:
+        raise RuntimeError(f"KD launches {launches} != {want}")
+    if len(step_recs) != steps_ or not all(
+            np.isfinite(r[k]) for r in step_recs for k in terms):
+        raise RuntimeError(f"KD step records {step_recs}")
+    if sorted(os.listdir(last)) != ["meta.json", "state.pt"] or len(best) != 1:
+        raise RuntimeError(f"KD checkpoints {os.listdir(runs)}")
+    for mode, quant in (("bf16", 0), ("w8a8", 36)):
+        scores = os.path.join(root, f"kd_scores_la19_{mode}.txt")
+        reset_counters()
+        main_kd.main(["--config", cfg, "--is_eval", "--eval", "student",
+                      "--is_score", "--ckpt", last, "--tracks", "LA19",
+                      "--comment", mode] + (["--w8a8"] if quant else []))
+        torch.cuda.synchronize()
+        got = read_counters()
+        with open(scores) as f:
+            vals = np.array([float(l.split(" ")[1]) for l in f])
+        want = launches_want(6 * dev_batches, dev_batches, quant)
+        log(f"4l (a) student scoring from last_kd/ ({mode}), {card}: {len(vals)} "
+            f"scores, finite {int(np.isfinite(vals).sum())}, |score| max "
+            f"{np.abs(vals).max():.4g}; launches {got} (want {want})")
+        if len(vals) != DEV_CLIPS or not np.all(np.isfinite(vals)) \
+                or got != want:
+            raise RuntimeError(f"4l (a): student scoring ({mode}) failed")
+    shutil.rmtree(runs)
+    return launches
+
+
+def kd_models(sd: dict, dtype: torch.dtype, dev, teacher_layers=None,
+              order=None):
+    """(teacher in eval mode, student in train mode with remat) on the
+    seed-0 weights: the teacher XLSR_AASIST (or its first
+    ``teacher_layers`` layers), the student My_XLSR_AASIST on ``order``
+    (the recipe's by default) initialised from TRAIN_SEED and filled from
+    the teacher by ``copy_teacher_weights``, the kernels on the path."""
+    from rtdsd_tpu_torch.engine.kd import copy_teacher_weights
+    from rtdsd_tpu_torch.models.convert import load_reference_state_dict
+    from rtdsd_tpu_torch.models.registry import get_model
+    from rtdsd_tpu_torch.models.wav2vec2 import select_layers
+    from rtdsd_tpu_torch.models.zoo import init_weights
+
+    order = order or KD_ORDER
+    ref = load_reference_state_dict(sd)
+    if teacher_layers:
+        t_spec = get_model("My_XLSR_AASIST", dtype=dtype,
+                           num_layers=teacher_layers, **KD_MODEL_KWARGS)
+        ref = select_layers(ref, t_spec.layer_indices)
+    else:
+        t_spec = get_model("XLSR_AASIST", dtype=dtype, **KD_MODEL_KWARGS)
+    teacher = t_spec.module
+    teacher.load_state_dict(ref, strict=True)
+    teacher.to(dev).eval().requires_grad_(False)
+    s_spec = get_model("My_XLSR_AASIST", dtype=dtype, remat=True,
+                       num_layers=len(order), order="custom",
+                       custom_order=order, **KD_MODEL_KWARGS)
+    init_weights(s_spec.module, TRAIN_SEED)
+    student = s_spec.module.to(dev).train()
+    copy_teacher_weights(student, teacher, order)
+    return teacher, student
+
+
+def kd_batch(dev, n: int):
+    """``n`` of 4j's clips cut to the recipe's 1 s (their first second)."""
+    waves, labels = train_batch(dev, n)
+    return waves[:, :KD_SAMPLES].contiguous(), labels
+
+
+def _kd_step_outputs(teacher, student, ref, waves, labels, step) -> dict:
+    """One KD step of ``student`` from ``ref`` on a fresh AdamW: the
+    metrics, gradients, state after the step and AdamW's moments."""
+    from rtdsd_tpu_torch.engine import steps
+
+    student.load_state_dict(ref, strict=True)
+    state = steps.TrainState(student, steps.make_optimizer(student, TRAIN_LR,
+                                                           1e-4))
+    metrics = {k: float(v) for k, v in
+               step(state, teacher, waves, labels, TRAIN_SEED).items()}
+    params = dict(student.named_parameters())
+    out = {"metrics": metrics,
+           "grads": {n: p.grad.detach().clone() for n, p in params.items()},
+           "state": {k: v.detach().clone()
+                     for k, v in student.state_dict().items()},
+           "mu": {n: state.optimizer.state[p]["exp_avg"].clone()
+                  for n, p in params.items()},
+           "sqrt_nu": {n: state.optimizer.state[p]["exp_avg_sq"].sqrt()
+                       for n, p in params.items()}}
+    del state
+    return out
+
+
+def kd_parity(sd: dict, dev, card: str) -> None:
+    """4l (b): one float32 KD step (TF32 off, deterministic algorithms) at
+    batch 4, 1 s clips, RawBoost4, a 4-layer full-width teacher and a
+    2-layer student (layers 0 and 3), with the kernels against the same
+    step with the plain versions: every loss term within TRAIN_LOSS_TOL,
+    the student's gradients and AdamW's moments within TRAIN_GRAD_TOL of
+    their max (``held_per_tensor``), its statistics and parameters as 4j
+    (a); the teacher bit for bit unchanged; then every kernel call of a
+    third step held to its plain version on the same inputs."""
+    from rtdsd_tpu_torch.engine import kd
+
+    waves, labels = kd_batch(dev, PARITY_BATCH)
+    teacher, student = kd_models(sd, torch.float32, dev,
+                                 teacher_layers=PARITY_LAYERS,
+                                 order=KD_PARITY_ORDER)
+    t_before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    ref = {k: v.detach().clone() for k, v in student.state_dict().items()}
+    step = kd.make_kd_train_step(KD_PARITY_KWARGS, rawboost_algo=4)
+    runs, launches = {}, None
+    with deterministic():
+        for name, ctx in (("kernels", contextlib.nullcontext),
+                          ("plain", plain_kernels), ("again", plain_kernels)):
+            reset_counters()
+            with ctx():
+                runs[name] = _kd_step_outputs(teacher, student, ref, waves,
+                                              labels, step)
+            if name == "kernels":
+                launches = read_counters()
+        worst = {}
+        with kernels_held_to_plain(worst):
+            _kd_step_outputs(teacher, student, ref, waves, labels, step)
+    teacher_same = all(torch.equal(v, t_before[k])
+                       for k, v in teacher.state_dict().items())
+    del teacher, student
+    torch.cuda.empty_cache()
+    plain, got = runs["plain"], runs["kernels"]
+    d_terms = {k: abs(got["metrics"][k] - plain["metrics"][k])
+               for k in plain["metrics"] if k != "num_correct"}
+    held = {k: held_per_tensor(got[k], plain[k], TRAIN_GRAD_TOL)
+            for k in ("grads", "mu", "sqrt_nu")}
+    g = held["grads"]
+    real = [n for n in g["gap"] if n not in g["zero"]]
+    again = max(float((runs["again"]["grads"][n] - t).abs().max())
+                for n, t in plain["grads"].items())
+    d_stats, d_params = _stats_and_params(got["state"], plain["state"])
+    want = launches_want(PARITY_LAYERS + 2 * len(KD_PARITY_ORDER), 1)
+    log(f"4l (b) f32 KD step, teacher layers 0-{PARITY_LAYERS - 1} and "
+        f"student layers {KD_PARITY_ORDER} at full width, batch "
+        f"{PARITY_BATCH}, 1 s, RawBoost4 (gated), {card}: launches {launches} (want "
+        f"{want}); loss terms kernels "
+        + ", ".join(f"{k} {got['metrics'][k]:.7f}" for k in d_terms)
+        + f"; max|d| against plain {max(d_terms.values()):.3g} (tol "
+        f"{TRAIN_LOSS_TOL}); plain repeated max|d| of gradients {again:.3g}; "
+        f"{len(real)} gradients held to {TRAIN_GRAD_TOL} of their max: worst "
+        f"{_worst(g['gap'], real)}; {len(g['zero'])} zero in exact "
+        f"arithmetic: worst {_worst(g['gap'], g['zero'], 1)}; AdamW moments: "
+        f"first worst {_worst(held['mu']['gap'], held['mu']['gap'], 1)}, "
+        f"square root of the second worst "
+        f"{_worst(held['sqrt_nu']['gap'], held['sqrt_nu']['gap'], 1)}; BN "
+        f"statistics max|d| {d_stats:.3g}; parameters max|d| {d_params:.3g}; "
+        f"teacher unchanged bit for bit: {teacher_same}")
+    log_held(f"4l (b) every kernel call of a KD step, {card}", worst)
+    over = {k: h["over"] for k, h in held.items() if h["over"]}
+    failed = []
+    if launches != want:
+        failed.append(f"launches {launches}")
+    if (max(d_terms.values()) > TRAIN_LOSS_TOL or over
+            or d_stats > TRAIN_STATS_TOL or d_params > PARAM_TOL):
+        failed.append(f"terms {d_terms}, past their bounds {over}, "
+                      f"statistics {d_stats:.3g}, parameters {d_params:.3g}")
+    if not teacher_same:
+        failed.append("the teacher changed")
+    if failed:
+        raise RuntimeError(f"4l (b): the kernels' KD step disagrees with the "
+                           f"plain one: {failed}")
+
+
+def kd_timed(sd: dict, dev, card: str) -> None:
+    """4l (c): bf16 KD steps of the recipe at batch 32, 1 s clips: ms a
+    step, the allocator's peak, one step's launches, busy share, device ms
+    by kernel class, and the teacher's forward alone on the batch."""
+    from rtdsd_tpu_torch.engine import kd, steps
+    from rtdsd_tpu_torch.ops.preemphasis import pre_emphasis
+
+    _, recipe = kd_recipe()
+    waves, labels = kd_batch(dev, TRAIN_BATCH)
+    teacher, student = kd_models(sd, torch.bfloat16, dev)
+    state = steps.TrainState(student, steps.make_optimizer(student, TRAIN_LR,
+                                                           1e-4))
+    step = kd.make_kd_train_step(recipe, rawboost_algo=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(2):
+        step(state, teacher, waves, labels, TRAIN_SEED)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TRAIN_STEPS_TIMED):
+        t0 = time.perf_counter()
+        m = step(state, teacher, waves, labels, TRAIN_SEED)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    reset_counters()
+    step(state, teacher, waves, labels, TRAIN_SEED)
+    launches = read_counters()
+    rows, wall_ms = _profiled(
+        lambda: step(state, teacher, waves, labels, TRAIN_SEED),
+        inference=False)
+    busy = sum(r[1] for r in rows)
+    pre = pre_emphasis(waves, 0.97)
+    t_rows, t_wall = _profiled(lambda: teacher(pre))
+    t_ms = sum(r[1] for r in t_rows)
+    median = statistics.median(times)
+    log(f"4l (c) bf16 KD step, batch {TRAIN_BATCH}, 1 s clips (24-layer "
+        f"teacher, student layers {KD_ORDER}, RawBoost4, KDLoss + MSELoss, "
+        f"remat, fused_gat, fast_softmax off), {card}: {median:.1f} ms median "
+        f"[{min(times):.1f}, {max(times):.1f}] of {TRAIN_STEPS_TIMED} after 2 "
+        f"warm-ups (last total_loss {float(m['total_loss']):.5g}); "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB ({base / 2**30:.2f} "
+        f"before the first step); one step's launches {launches}; profiled "
+        f"step: kernels {busy:.1f} ms, {sum(r[2] for r in rows)} kernel "
+        f"launches, wall {wall_ms:.1f} ms (device busy "
+        f"{100 * busy / wall_ms:.1f}% under the profiler, "
+        f"{100 * busy / median:.1f}% of the median unprofiled step); the "
+        f"teacher's forward alone: {t_ms:.2f} ms of kernels "
+        f"({100 * t_ms / busy:.1f}% of the step's), "
+        f"{sum(r[2] for r in t_rows)} launches, wall {t_wall:.1f} ms")
+    for cls, (ms, n) in sorted(by_class(rows).items(), key=lambda kv: -kv[1][0]):
+        log(f"  class {cls:22s} {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n}")
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
+        log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<5d} {key[:90]}")
+    if launches != launches_want(36, 1):
+        raise RuntimeError(f"4l (c): a KD step launched {launches}")
+    if not all(np.isfinite(float(v)) for v in m.values()):
+        raise RuntimeError(f"4l (c): KD step metrics {m}")
+    del state, student, teacher
+    torch.cuda.empty_cache()
+
+
+def optimizer_timed(sd: dict, dev, card: str) -> None:
+    """4l (d): 4j's bf16 train step (the default recipe, batch 32, 4 s
+    clips) with AdamW, ``adam_mu_dtype: bfloat16`` and Adafactor: ms a step
+    (median [min, max] of KD_OPT_STEPS after a warm-up) and the
+    allocator's peak. Information."""
+    from rtdsd_tpu_torch.engine import steps
+
+    waves, labels = train_batch(dev, TRAIN_BATCH)
+    model = train_model(sd, torch.bfloat16, dev)
+    ref = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    step = steps.make_train_step(rawboost_algo=4)
+    out = []
+    for name, kw in (("AdamW float32", {}),
+                     ("adam_mu_dtype bfloat16", {"mu_dtype": "bfloat16"}),
+                     ("Adafactor", {"optimizer": "adafactor"})):
+        model.load_state_dict(ref, strict=True)
+        state = steps.TrainState(model, steps.make_optimizer(
+            model, TRAIN_LR, 1e-4, **kw))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(state, waves, labels, TRAIN_SEED)["loss"])]
+        times = []
+        for _ in range(KD_OPT_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(state, waves, labels,
+                                     TRAIN_SEED)["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        opt_bytes = sum(t.numel() * t.element_size()
+                        for st in state.optimizer.state.values()
+                        for t in st.values() if torch.is_tensor(t))
+        out.append(f"{name} {statistics.median(times):.1f} ms "
+                   f"[{min(times):.1f}, {max(times):.1f}], peak "
+                   f"{peak / 2**30:.2f} GiB, optimizer state "
+                   f"{opt_bytes / 2**30:.3f} GiB, losses "
+                   f"{', '.join(f'{l:.4f}' for l in losses)}")
+        if not np.all(np.isfinite(losses)):
+            raise RuntimeError(f"4l (d) {name}: losses {losses}")
+        del state
+    log(f"4l (d) 4j's bf16 train step (XLSR_AASIST, batch {TRAIN_BATCH}, 4 s, "
+        f"RawBoost4) by optimizer, median [min, max] of {KD_OPT_STEPS} after "
+        f"a warm-up, {card} (information): " + "; ".join(out))
+    del model
+    torch.cuda.empty_cache()
+
+
+def kd_path(ckpt: str, ssl_pt: str, sd: dict, dev, card: str) -> dict:
+    """Phase 4l; -> the launches of its KD CLI epoch."""
+    t0 = time.perf_counter()
+    launches = kd_cli(ckpt, ssl_pt, card)
+    torch.cuda.empty_cache()
+    kd_parity(sd, dev, card)
+    kd_timed(sd, dev, card)
+    optimizer_timed(sd, dev, card)
+    log(f"4l: {time.perf_counter() - t0:.1f} s, {card}")
+    return launches
+
+
 def frontend_path(sd: dict, dev) -> dict:
     """The op fused_conv_frontend at full width on the model's front-end
     weights, against the port's unfused ConvFeatureExtractor."""
@@ -3341,6 +3813,7 @@ def main() -> int:
     train_parity(sd, dev)
     attention_grad_check(dev)
     train_timed(sd, dev, card)
+    kd_launches = kd_path(ckpt, ssl_pt, sd, dev, card)
     conformer_launches = conformer_train_path(ssl_pt, dev, card)
 
     # phase 5: one f32 batch, kernels against plain versions, TF32 off
@@ -3435,6 +3908,7 @@ def main() -> int:
                     daemon_launches=daemon_launches[k],
                     train_launches=train_launches[k],
                     conformer_train_launches=conformer_launches[k],
+                    kd_launches=kd_launches[k],
                     path=paths.get(k, "bf16 CLI scoring, 2 batches"), **rec)
                for k, (rec, route, src, rep) in records.items()]
     print(json.dumps({"kernels": kernels}))

@@ -144,13 +144,16 @@ def load_checkpoint_for_eval(ckpt: str, spec: ModelSpec) -> None:
 
 
 def apply_w8(sys_config: SysConfig, exp_config: ExpConfig, spec: ModelSpec,
-             device: torch.device, a8: bool = False) -> ModelSpec:
-    """Serving mode: rebuild the spec with int8 transformer matmuls and
-    fill it with the loaded float model's weights, quantized on ``device``
+             device: torch.device, a8: bool = False,
+             name: Optional[str] = None,
+             kwargs: Optional[dict] = None) -> ModelSpec:
+    """Serving mode: rebuild the spec (the model ``name`` with ``kwargs``,
+    by default the configured one) with int8 transformer matmuls and fill
+    it with the loaded float model's weights, quantized on ``device``
     (models/quantize.py). ``a8=True`` adds dynamic int8 activations."""
-    kwargs = dict(exp_config.kwargs)
+    kwargs = dict(exp_config.kwargs if kwargs is None else kwargs)
     kwargs["w2v"] = {**(kwargs.get("w2v") or {}), "w8": True, "a8": bool(a8)}
-    w8 = build_model(sys_config, exp_config, device, kwargs=kwargs)
+    w8 = build_model(sys_config, exp_config, device, name=name, kwargs=kwargs)
     w8.module.load_state_dict(quantize_state_dict(spec.module.state_dict()),
                               strict=True)
     print("w8 scoring: XLSR transformer weights quantized to int8"
@@ -160,16 +163,21 @@ def apply_w8(sys_config: SysConfig, exp_config: ExpConfig, spec: ModelSpec,
 
 def load_eval_model(sys_config: SysConfig, exp_config: ExpConfig, ckpt: str,
                     device: torch.device, w8: bool = False,
-                    w8a8: bool = False) -> ModelSpec:
+                    w8a8: bool = False, name: Optional[str] = None,
+                    kwargs: Optional[dict] = None) -> ModelSpec:
     """Build the model ``sys_config`` names (a cascade's screener passes
-    its own configs), load ``ckpt`` (strict), and optionally quantize it
-    (w8/w8a8, the config's ``w8_scoring``/``w8a8_scoring`` OR'd in)."""
-    spec = build_model(sys_config, exp_config, device)
+    its own configs; ``name`` and ``kwargs`` override the model and its
+    kwargs, as a distillation student's are), load ``ckpt`` (strict), and
+    optionally quantize it (w8/w8a8, the config's
+    ``w8_scoring``/``w8a8_scoring`` OR'd in)."""
+    spec = build_model(sys_config, exp_config, device, name=name,
+                       kwargs=kwargs)
     load_checkpoint_for_eval(ckpt, spec)
     print(f"Loaded checkpoint from {ckpt}")
     a8 = w8a8 or exp_config.w8a8_scoring
     if a8 or w8 or exp_config.w8_scoring:
-        spec = apply_w8(sys_config, exp_config, spec, device, a8=a8)
+        spec = apply_w8(sys_config, exp_config, spec, device, a8=a8,
+                        name=name, kwargs=kwargs)
     return spec
 
 

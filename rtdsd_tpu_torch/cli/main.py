@@ -38,8 +38,10 @@ or an HF snapshot) or ``ssl_ckpt_path`` (a fairseq ``.pt``), a dev pass
 each epoch, as the JAX CLI does: a
 ``best_LA_epoch{e}_{loss}_{acc}`` checkpoint when the dev loss improves
 with accuracy above 95 or a new best accuracy above 95 comes in another
-epoch, the rolling ``last`` checkpoint every epoch, and early stopping on
-the dev loss with ``kwargs.early_stop_patience``. ``restore_checkpoint``
+epoch, the rolling ``last`` checkpoint every epoch (both written by a
+background thread from a host copy, ``save_checkpoint_async``; the run
+waits for the last before it exits), and early stopping on the dev loss
+with ``kwargs.early_stop_patience`` (its save synchronous). ``restore_checkpoint``
 (or ``--ckpt``) resumes from a checkpoint directory (its full state) or
 starts from a reference ``.pt``'s weights. ``--accuracy`` only runs the
 test pass (the DF21 eval set when configured, else dev).
@@ -178,6 +180,7 @@ def run_train(args, sys_config, exp_config, device):
                if patience > 0 else None)
     best_loss, best_acc = float("inf"), 0.0
     best_loss_epoch, best_acc_epoch = -1, -2
+    handle = None
     for epoch in range(args.max_epoch or exp_config.max_epoch):
         trainer.train()
         dev_loss, dev_acc = trainer.test(is_dev=True)
@@ -194,12 +197,12 @@ def run_train(args, sys_config, exp_config, device):
         if save:
             path = os.path.join(save_dir, f"best_LA_epoch{epoch}_"
                                           f"{dev_loss:.5f}_{dev_acc:.2f}")
-            checkpoint.save_checkpoint(path, state, epoch, meta={
+            checkpoint.save_checkpoint_async(path, state, epoch, meta={
                 "epoch": epoch, "dev_loss": dev_loss, "dev_acc": dev_acc})
             logger.print(f"saved {path}")
-        checkpoint.save_checkpoint(os.path.join(save_dir, "last"), state,
-                                   epoch, meta={"epoch": epoch,
-                                                "dev_loss": dev_loss})
+        handle = checkpoint.save_checkpoint_async(
+            os.path.join(save_dir, "last"), state, epoch,
+            meta={"epoch": epoch, "dev_loss": dev_loss})
         if stopper is not None:
             stopper(dev_loss, epoch, lambda p: checkpoint.save_checkpoint(
                 p, state, epoch, meta={"epoch": epoch}))
@@ -207,6 +210,8 @@ def run_train(args, sys_config, exp_config, device):
                 logger.print(f"early stop at epoch {epoch} "
                              f"(patience {patience})")
                 break
+    if handle is not None:          # commit the save in flight before exit
+        handle.wait_until_finished()
     logger.close()
 
 

@@ -6,7 +6,10 @@ model's state dict under the reference's names, the optimizer's state dict,
 the step and the epoch) and ``meta.json``. Both are written to a temporary
 file first and moved into place with ``os.replace``, so a crash mid-save
 leaves the previous checkpoint whole. Restoring the full state resumes a run
-exactly. Saves are synchronous.
+exactly. :func:`save_checkpoint` writes before it returns;
+:func:`save_checkpoint_async` copies the state to the host before it
+returns and writes it from a thread, as the JAX package's async saves let
+the train loop go on.
 
 The JAX package's checkpoint directories are read for their model only
 (:func:`load_jax_variables`): ``state.msgpack`` (flax's bytes of ``step``,
@@ -19,7 +22,8 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+import threading
+from typing import Any, Optional
 
 import torch
 
@@ -37,18 +41,79 @@ def _replace_into(path: str, name: str, write) -> None:
     os.replace(tmp, os.path.join(path, name))
 
 
-def save_checkpoint(path: str, state: TrainState, epoch: Optional[int] = None,
-                    meta: Optional[dict] = None) -> None:
-    os.makedirs(path, exist_ok=True)
-    blob = {"model": state.model.state_dict(),
+def _blob(state: TrainState, epoch: Optional[int]) -> dict:
+    return {"model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "step": state.step, "epoch": epoch}
+
+
+def _write(path: str, blob: dict, meta: Optional[dict]) -> None:
+    os.makedirs(path, exist_ok=True)
     _replace_into(path, STATE, lambda tmp: torch.save(blob, tmp))
 
     def write_meta(tmp):
         with open(tmp, "w") as f:
             json.dump(meta or {}, f, indent=2)
     _replace_into(path, "meta.json", write_meta)
+
+
+def save_checkpoint(path: str, state: TrainState, epoch: Optional[int] = None,
+                    meta: Optional[dict] = None) -> None:
+    _write(path, _blob(state, epoch), meta)
+
+
+def _to_host(obj: Any) -> Any:
+    """A copy of ``obj`` whose tensors are fresh host tensors (a device
+    tensor's copy completes before this returns)."""
+    if torch.is_tensor(obj):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return type(obj)((k, _to_host(v)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+class AsyncSave:
+    """A save in flight: ``wait_until_finished()`` joins its writer and
+    raises the writer's error, once."""
+
+    def __init__(self, path: str, blob: dict, meta: Optional[dict]):
+        self.path, self._error = path, None
+        self._thread = threading.Thread(target=self._run,
+                                        args=(path, blob, meta),
+                                        name="checkpoint-writer", daemon=True)
+        self._thread.start()
+
+    def _run(self, path, blob, meta) -> None:
+        try:
+            _write(path, blob, meta)
+        except Exception as e:           # re-raised in the caller's thread
+            self._error = e
+
+    def wait_until_finished(self) -> None:
+        self._thread.join()
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
+
+
+_IN_FLIGHT: Optional[AsyncSave] = None
+
+
+def save_checkpoint_async(path: str, state: TrainState,
+                          epoch: Optional[int] = None,
+                          meta: Optional[dict] = None) -> AsyncSave:
+    """Save as :func:`save_checkpoint` does, the writing in a thread. The
+    model's and the optimizer's state are copied to the host before this
+    returns, so the next step may update the parameters in place. A save
+    still in flight is waited for first (its error raised here)."""
+    global _IN_FLIGHT
+    if _IN_FLIGHT is not None:
+        prev, _IN_FLIGHT = _IN_FLIGHT, None
+        prev.wait_until_finished()
+    _IN_FLIGHT = AsyncSave(path, _to_host(_blob(state, epoch)), meta)
+    return _IN_FLIGHT
 
 
 def is_checkpoint(path: str) -> bool:

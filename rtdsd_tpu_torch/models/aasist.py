@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rtdsd_tpu_torch.models import dropout
+from rtdsd_tpu_torch.models.taps import record
 from rtdsd_tpu_torch.models.wav2vec2 import linear
 from rtdsd_tpu_torch.ops.gat import fused_gat_aggregate, fused_htrg_gat_aggregate
 
@@ -261,45 +262,54 @@ class AASISTBackend(nn.Module):
         self.out_layer = nn.Linear(5 * g1, num_classes)
 
     def forward(self, feats: torch.Tensor, src=None) -> torch.Tensor:
-        """``src``: the dropout seed source of a train forward."""
+        """``src``: the dropout seed source of a train forward. The JAX
+        modules' outputs are recorded as distillation taps
+        (:mod:`.taps`)."""
         dt = self.dtype
-        x = linear(feats, self.LL, dt)                         # (B, T, 128)
+        x = record("backend/LL", linear(feats, self.LL, dt))    # (B, T, 128)
         x = x.transpose(1, 2)[:, None]                         # (B, 1, 128, T)
         x = F.max_pool2d(x, (3, 3))                            # (B, 1, 42, T//3)
-        x = F.selu(batch_norm(x, self.first_bn, dt))
-        for blk in self.encoder:
-            x = blk[0](x)
-        x = F.selu(batch_norm(x, self.first_bn1, dt))          # (B, 64, 42, W)
+        x = F.selu(record("backend/first_bn",
+                          batch_norm(x, self.first_bn, dt), True))
+        for i, blk in enumerate(self.encoder):
+            x = record(f"backend/encoder_{i}", blk[0](x), True)
+        x = F.selu(record("backend/first_bn1",                 # (B, 64, 42, W)
+                          batch_norm(x, self.first_bn1, dt), True))
 
         att = self.attention
         w = F.selu(conv2d(x, att[0], dt))
-        w = conv2d(batch_norm(w, att[2], dt), att[3], dt)
+        w = record("backend/att_conv2",
+                   conv2d(batch_norm(w, att[2], dt), att[3], dt), True)
 
         # spectral branch: softmax over time -> one node per frequency bin
         e_s = (x * torch.softmax(w, dim=3)).sum(dim=3).transpose(1, 2)   # (B, 42, C)
         e_s = e_s + self.pos_S.to(e_s.dtype)
-        out_s = self.pool_S(self.GAT_layer_S(e_s, src), src)
+        out_s = self._tapped("pool_S", self._tapped("GAT_layer_S", e_s, src),
+                             src)
         # temporal branch: softmax over frequency -> one node per frame
         e_t = (x * torch.softmax(w, dim=2)).sum(dim=2).transpose(1, 2)   # (B, W, C)
-        out_t = self.pool_T(self.GAT_layer_T(e_t, src), src)
+        out_t = self._tapped("pool_T", self._tapped("GAT_layer_T", e_t, src),
+                             src)
 
         master1 = self.master1.to(out_t.dtype)
         master2 = self.master2.to(out_t.dtype)
 
-        out_t1, out_s1, m1 = self.HtrgGAT_layer_ST11(out_t, out_s, master1, src)
-        out_s1 = self.pool_hS1(out_s1, src)
-        out_t1 = self.pool_hT1(out_t1, src)
-        out_t_aug, out_s_aug, m_aug = self.HtrgGAT_layer_ST12(out_t1, out_s1,
-                                                              m1, src)
+        out_t1, out_s1, m1 = self._tapped("HtrgGAT_layer_ST11", out_t, out_s,
+                                          master1, src)
+        out_s1 = self._tapped("pool_hS1", out_s1, src)
+        out_t1 = self._tapped("pool_hT1", out_t1, src)
+        out_t_aug, out_s_aug, m_aug = self._tapped("HtrgGAT_layer_ST12",
+                                                   out_t1, out_s1, m1, src)
         out_t1 = out_t1 + out_t_aug
         out_s1 = out_s1 + out_s_aug if self.fix_out_s1_bug else out_s1 + 1
         m1 = m1 + m_aug
 
-        out_t2, out_s2, m2 = self.HtrgGAT_layer_ST21(out_t, out_s, master2, src)
-        out_s2 = self.pool_hS2(out_s2, src)
-        out_t2 = self.pool_hT2(out_t2, src)
-        out_t_aug, out_s_aug, m_aug = self.HtrgGAT_layer_ST22(out_t2, out_s2,
-                                                              m2, src)
+        out_t2, out_s2, m2 = self._tapped("HtrgGAT_layer_ST21", out_t, out_s,
+                                          master2, src)
+        out_s2 = self._tapped("pool_hS2", out_s2, src)
+        out_t2 = self._tapped("pool_hT2", out_t2, src)
+        out_t_aug, out_s_aug, m_aug = self._tapped("HtrgGAT_layer_ST22",
+                                                   out_t2, out_s2, m2, src)
         out_t2 = out_t2 + out_t_aug
         out_s2 = out_s2 + out_s_aug
         m2 = m2 + m_aug
@@ -316,3 +326,10 @@ class AASISTBackend(nn.Module):
             dim=1)
         last_hidden = _drop(self, last_hidden, 0.5, src)
         return linear(last_hidden, self.out_layer, dt)
+
+    def _tapped(self, name: str, *args):
+        """Call the graph module ``name`` and record its output (a typed
+        layer's first one, as the JAX taps take a tuple's)."""
+        out = getattr(self, name)(*args)
+        record(f"backend/{name}", out[0] if isinstance(out, tuple) else out)
+        return out

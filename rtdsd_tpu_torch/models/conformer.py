@@ -42,6 +42,7 @@ from torch import nn
 
 from rtdsd_tpu_torch.models import dropout
 from rtdsd_tpu_torch.models.aasist import batch_norm
+from rtdsd_tpu_torch.models.taps import record
 from rtdsd_tpu_torch.models.wav2vec2 import LN_EPS, _HALF, layer_norm, linear
 
 BN_EPS = 1e-5
@@ -89,14 +90,16 @@ class PreNorm(nn.Module):
 
 
 class Scale(nn.Module):
-    """lucidrains' ``Scale``: ``scale * fn(x)``."""
+    """lucidrains' ``Scale``: ``scale * fn(x)``. Records ``fn(x)``, the JAX
+    sub-module's output, as the distillation tap ``tap_name``."""
 
     def __init__(self, scale: float, fn: nn.Module):
         super().__init__()
         self.scale, self.fn = scale, fn
+        self.tap_name = "ff"        # its JAX path, set by ConformerBlock
 
     def forward(self, x: torch.Tensor, src=None) -> torch.Tensor:
-        return self.scale * self.fn(x, src)
+        return self.scale * record(self.tap_name, self.fn(x, src))
 
 
 class ConformerAttention(nn.Module):
@@ -192,13 +195,21 @@ class ConformerBlock(nn.Module):
                                         conv_kernel_size)
         self.ff2 = Scale(0.5, PreNorm(dim, FeedForward(dim, ff_mult)))
         self.post_norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.name_taps("block")
+
+    def name_taps(self, path: str) -> None:
+        """Names the block's distillation taps after its JAX path."""
+        self.tap_name = path
+        self.ff1.tap_name, self.ff2.tap_name = f"{path}/ff1", f"{path}/ff2"
 
     def forward(self, x: torch.Tensor, src=None) -> torch.Tensor:
+        """Records the JAX sub-modules' outputs as distillation taps."""
+        tap = self.tap_name
         x = x + self.ff1(x, src)
-        x = x + self.attn(x, src)
-        x = x + self.conv(x, src)
+        x = x + record(f"{tap}/attn", self.attn(x, src))
+        x = x + record(f"{tap}/conv", self.conv(x, src))
         x = x + self.ff2(x, src)
-        return layer_norm(x, self.post_norm, x.dtype)
+        return record(f"{tap}/post_norm", layer_norm(x, self.post_norm, x.dtype))
 
 
 class MyConformer(nn.Module):
@@ -211,6 +222,8 @@ class MyConformer(nn.Module):
         self.encoder_blocks = nn.ModuleList(
             ConformerBlock(emb_size, heads, emb_size // heads, ffmult, exp_fac,
                            kernel_size) for _ in range(n_encoders))
+        for i, block in enumerate(self.encoder_blocks):
+            block.name_taps(f"backend/conformer/block_{i}")
         self.class_token = nn.Parameter(torch.rand(1, emb_size))
         self.fc5 = nn.Linear(emb_size, num_classes)
 
@@ -219,9 +232,10 @@ class MyConformer(nn.Module):
         token = self.class_token.to(dt)[None].expand(x.shape[0], -1, -1)
         x = torch.cat([token, x], dim=1)
         for block in self.encoder_blocks:
-            x = block(x, src)
+            x = record(block.tap_name, block(x, src))
         embedding = x[:, 0, :]
-        return linear(embedding, self.fc5, dt), embedding
+        return record("backend/conformer",
+                      linear(embedding, self.fc5, dt)), embedding
 
 
 class ConformerBackend(nn.Module):
@@ -242,6 +256,7 @@ class ConformerBackend(nn.Module):
     def forward(self, feats: torch.Tensor, src=None) -> torch.Tensor:
         """``src``: the dropout seed source of a train forward."""
         dt = self.dtype
-        x = linear(feats, self.LL, dt)
-        x = F.selu(batch_norm(x[:, None], self.first_bn, dt)[:, 0])
-        return self.conformer(x, src)[0]
+        x = record("backend/LL", linear(feats, self.LL, dt))
+        x = record("backend/first_bn", batch_norm(x[:, None], self.first_bn, dt),
+                   True)
+        return self.conformer(F.selu(x[:, 0]), src)[0]

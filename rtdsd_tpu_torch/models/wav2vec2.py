@@ -45,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from rtdsd_tpu_torch.models import dropout
+from rtdsd_tpu_torch.models import dropout, taps
 from rtdsd_tpu_torch.ops import fastgelu
 from rtdsd_tpu_torch.ops.attention import mha_small_t
 
@@ -432,13 +432,16 @@ class TransformerEncoder(nn.Module):
                 src: Optional[torch.Generator] = None):
         """(B, T, D) -> (B, T, D); with ``return_hiddens`` also the output
         of every layer stacked (L, B, T, D), taken before the final
-        LayerNorm, as the JAX scan's ``y``. In training each layer's dropout
-        seed is drawn from ``src`` here, outside the recomputed region."""
+        LayerNorm, as the JAX scan's ``y`` (recorded as the taps
+        ``ssl_hidden:{i}`` too, outside the recomputed region). In training
+        each layer's dropout seed is drawn from ``src`` here, outside the
+        recomputed region."""
         x = x + self.positional(x)
         if not self.cfg.layer_norm_first:
             x = layer_norm(x, self.layer_norm, self.dtype)
         hiddens = []
-        for layer in self.layers:
+        tapped = taps.active()
+        for i, layer in enumerate(self.layers):
             if not self.training:
                 x = layer(x)
             elif self.remat:
@@ -448,6 +451,8 @@ class TransformerEncoder(nn.Module):
                 x = layer(x, dropout.next_seed(src))
             if return_hiddens:
                 hiddens.append(x)
+            if tapped:
+                taps.record(f"ssl_hidden:{i}", x)
         if self.cfg.layer_norm_first:
             x = layer_norm(x, self.layer_norm, self.dtype)
         if return_hiddens:

@@ -23,6 +23,7 @@ from torch import nn
 
 from rtdsd_tpu_torch.models.aasist import AASISTBackend
 from rtdsd_tpu_torch.models.conformer import ConformerBackend
+from rtdsd_tpu_torch.models.taps import record
 from rtdsd_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
 
 
@@ -41,7 +42,8 @@ def _features(model: nn.Module, wave: Optional[torch.Tensor],
     features (B, frames, C) computed elsewhere (``wave`` then ``None``)."""
     if wave is not None and wave.dim() == 3:
         wave = wave[..., 0]
-    return model.ssl_model.model(wave, conv_feats=conv_feats, src=src)
+    return record("ssl_model",
+                  model.ssl_model.model(wave, conv_feats=conv_feats, src=src))
 
 
 class XLSR_AASIST(AASISTBackend):

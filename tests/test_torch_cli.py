@@ -24,6 +24,16 @@ from rtdsd_tpu_torch.cli import main as port_main
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny CPU ops: a full torch thread pool per test worker only adds
+    contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def track(tmp_path_factory):
     """Synthetic LA21 track, config, and a reference .pt of a tiny model."""

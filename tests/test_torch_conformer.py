@@ -35,6 +35,16 @@ BLOCK_TOL = dict(rtol=1e-5, atol=2e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny CPU ops: a full torch thread pool per test worker only adds
+    contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _apply(module, variables, *args, **kw):
     out = jax.jit(lambda v, *a: module.apply(v, *a, **kw))(
         variables, *(jnp.asarray(a) for a in args))

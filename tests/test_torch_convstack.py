@@ -32,6 +32,16 @@ SEVEN = ((128, 10, 5),) + ((128, 3, 2),) * 4 + ((128, 2, 2),) * 2
 FLAGSHIP = ((512, 10, 5),) + ((512, 3, 2),) * 4 + ((512, 2, 2),) * 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny CPU ops: a full torch thread pool per test worker only adds
+    contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def jx():
     jax = pytest.importorskip("jax")

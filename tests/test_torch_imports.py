@@ -19,6 +19,16 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "safetensors",
              "orbax", "transformers", "rtdsd_tpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny CPU ops: a full torch thread pool per test worker only adds
+    contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_files():
     files = sorted(glob.glob(os.path.join(REPO, "rtdsd_tpu_torch", "**", "*.py"),
                              recursive=True))
@@ -49,7 +59,8 @@ def test_cli_import_loads_no_jax():
             "rtdsd_tpu_torch.engine.serving, rtdsd_tpu_torch.cli.daemon, "
             "rtdsd_tpu_torch.engine.netserve, rtdsd_tpu_torch.native.client, "
             "rtdsd_tpu_torch.cli.convert, rtdsd_tpu_torch.ops.augment, "
-            "rtdsd_tpu_torch.data.host_augment; "
+            "rtdsd_tpu_torch.data.host_augment, rtdsd_tpu_torch.cli.main_kd, "
+            "rtdsd_tpu_torch.engine.kd, rtdsd_tpu_torch.models.taps; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -15,6 +15,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 from test_native import write_flac
 from rtdsd_tpu.config import ExpConfig as JaxExp, SysConfig as JaxSys
@@ -38,6 +39,16 @@ CLIPS = {
     "flac": [(16000, 12000), ("flac", 9000), (16000, 5000), ("flac", 4000),
              ("flac", 20000)],
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny CPU ops: a full torch thread pool per test worker only adds
+    contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _write_clip(path, sr, n, rng):

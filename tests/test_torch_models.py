@@ -30,6 +30,16 @@ W2V = {"encoder_embed_dim": 32, "encoder_ffn_dim": 64, "encoder_heads": 4,
 SAMPLES = 8000
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny CPU ops: a full torch thread pool per test worker only adds
+    contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _kwargs(**over):
     kw = {"num_layers": 2, "w2v": dict(W2V)}
     kw["w2v"].update(over.pop("w2v", {}))

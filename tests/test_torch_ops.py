@@ -20,6 +20,16 @@ from rtdsd_tpu_torch.models.wav2vec2 import int8_matmul
 from rtdsd_tpu_torch.ops import attention, build, gat, quant
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny CPU ops: a full torch thread pool per test worker only adds
+    contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def jx():
     """The JAX side, imported here so that the gpu tests of this file also

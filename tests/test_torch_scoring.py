@@ -41,6 +41,16 @@ from rtdsd_tpu_torch.utils import metrics as port_metrics
 TOL = dict(rtol=1e-4, atol=1e-4)     # tiny float32 models, tests/test_torch_cli.py
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny CPU ops: a full torch thread pool per test worker only adds
+    contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _read(path):
     lines = open(path).read().splitlines()
     return ([l.split(" ")[0] for l in lines],

@@ -40,6 +40,16 @@ TOL = dict(rtol=1e-4, atol=1e-4)          # float32, tests/test_torch_models.py
 STREAM_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_streaming.py
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny CPU ops: a full torch thread pool per test worker only adds
+    contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _apply(module, variables, *args, **kw):
     """A flax eval forward, jitted, outputs as float32 numpy."""
     out = jax.jit(lambda v, *a: module.apply(v, *a, **kw))(

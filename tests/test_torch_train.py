@@ -422,9 +422,6 @@ def test_gat_kernels_only_in_eval(tiny, monkeypatch):
 # ------------------------------------------------------------ deferred
 
 DEFERRED = {
-    "adafactor": lambda m: steps.make_optimizer(m, LR, WD, optimizer="adafactor"),
-    "adam_mu_dtype": lambda m: steps.make_optimizer(m, LR, WD,
-                                                    mu_dtype="bfloat16"),
     "remat_hidden": lambda m: registry.get_model(
         "My_XLSR_AASIST", remat=True, num_layers=2,
         w2v=dict(W2V, remat_policy="hidden")),

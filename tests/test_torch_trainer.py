@@ -298,9 +298,10 @@ def test_cli_train_probes(corpus, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_main.main(["--config", cfg, "--max_epoch", "1"])
-    # adafactor waits (ROADMAP Queue 1, item 7); the CLI says so
-    raw["ExpConfig"]["optimizer"] = "adafactor"
-    conf = tmp_path / "adafactor.json"
+    # the remat policies wait (ROADMAP Queue 1, item 7); the CLI says so
+    raw["ExpConfig"]["kwargs"] = {**KWARGS, "w2v": {**W2V,
+                                                    "remat_policy": "hidden"}}
+    conf = tmp_path / "remat_hidden.json"
     conf.write_text(json.dumps(raw))
     with pytest.raises(NotImplementedError, match="item 7"):
         port_main.main(["--config", str(conf), "--device", "cpu"])
