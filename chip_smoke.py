@@ -200,7 +200,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       a step, 6 / 2 / 4 in the dev batch; finite logged terms,
       ``last_kd/`` and one ``student_best_epoch0_*``; then ``--is_eval
       --eval student --is_score`` from ``last_kd/`` in bf16 and
-      ``--w8a8``: 32 finite scores, (6, 2, 4) and 36 ``quantize_int8``;
+      ``--w8a8``: 32 finite scores, (6, 2, 4) and 36 ``quantize_int8``
+      (``last_kd/`` is kept for 4m);
       (b) one float32 KD step (TF32 off, deterministic algorithms) at
       batch 4, a 4-layer full-width teacher and a 2-layer student (layers
       0 and 3), the kernels against the plain versions: every loss term
@@ -212,6 +213,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       by kernel class and the teacher's forward alone; (d) 4j's bf16
       train step with AdamW, ``adam_mu_dtype: bfloat16`` and Adafactor:
       ms a step and the allocator's peak (information);
+   j (e). (after 4j (c)) the remat settings ``full``, ``remat_policy:
+      hidden``, ``dots`` and ``remat_save_every: 4``: one float32 train
+      step each (TF32 off, deterministic algorithms, batch 4, layers 0-3
+      at full width), every gradient within 1e-6 of its max of ``full``'s
+      (the max |d| printed); then bf16 steps at batch 32 at full depth:
+      ms a step (median [min, max] of 3 after one), ``max_memory_allocated``
+      and one step's attention launches;
+   m. (after 4l) export and artifact-only scoring and serving: (a)
+      ``rtdsd_tpu_torch.cli.export`` in a fresh process on 4a's bf16
+      ``.pt`` (``--batch sym --platforms cuda``: export wall, program and
+      sidecar bytes), then ``cli.infer`` in another on 4a's 32 clips:
+      scores against 4a's CLI scores within 0.05 x max(1, |score|), no
+      model-defining or JAX module imported, launches exactly (48, 4, 8);
+      4l's student from ``last_kd/`` exported with ``--student --w8a8
+      --batch 32`` (4l's scoring batch; 36 ``quantize_int8``) and its
+      artifact on 4l's dev clips against 4l's ``--w8a8`` student scores,
+      (6, 2, 4); (b) a streaming bundle of 4a's model (4 s windows, 2 s
+      hop) and ``cli.infer --per_window --batch_size 8`` on 4g's 16 kHz
+      files: windows at 4g's incremental starts, scores within 0.05 x
+      max(1, |score|) of ``cli.stream --incremental``, (24, 2, 4) a score
+      call; (c) a serving bundle at 4h's
+      geometry (512 streams, 1 s windows, 0.5 s hop, bf16, int16) with
+      4h's cascade: the artifact engine against the checkpoint engine at
+      the same fixed shapes on 4h's files (the same windows, flags and
+      dispatch counts, scores within 0.05 x max(1, |score|), the count
+      equal bit for bit printed), both timed in turns at 512 streams
+      (tick p50 / p95, device ms a tick); ``cli.serve --artifact`` on the
+      32 files and ``cli.daemon --artifact`` (16 files over the socket, a
+      SIGHUP reloading the weight sidecars between two halves) with exact
+      launches;
 5. one full-width float32 batch with the kernels against the same batch
    with every kernel swapped for its plain version (TF32 off): logits agree,
    for XLSR_AASIST and for XLSR_Conformer;
@@ -222,14 +253,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    XLSR_Conformer batch of 16 with its head's share (the back-end profiled
    alone on the same batch's encoder features), and the kernels that the
    bf16 batch's six GAT calls launch (the GAT kernels and any cast or copy
-   inside the calls).
+   inside the calls); the bf16 forward at batch 16 and 1 with the kernels
+   as ``torch.library`` operators (the port's binding) against their
+   ``ctypes`` launches called directly, in turns (the binding's cost).
 
 It prints a ``{"kernels": [...]}`` line (``stream_launches``: the launches
 of the four runs of 4g together; ``serve_launches``: of the three CLI runs
 of 4h; ``daemon_launches``: of the daemon CLI run of 4i (b);
 ``train_launches``: of the train CLI run of 4j;
 ``conformer_train_launches``: of the Conformer train CLI run of 4k;
-``kd_launches``: of the KD CLI epoch of 4l), the
+``kd_launches``: of the KD CLI epoch of 4l; ``export_launches``: of
+4m's exports and artifact runs together), the
 ``nvidia-smi`` name and power limit
 line, and as its last line ``{"ok": true, "device": {...}}``. Scratch
 files go to ``build/chip_smoke/`` in the checkout.
@@ -1337,7 +1371,7 @@ def stream_path(ckpt: str, conformer_ckpt: str) -> dict:
         f"start, max |d| / max(1, |score|) {worst:.3g} (tol 0.05)")
     if worst > 0.05 or shared != on_grid:
         raise RuntimeError("naive and incremental streaming scores differ")
-    return total
+    return total, scores["incremental"]
 
 
 @contextlib.contextmanager
@@ -1559,12 +1593,15 @@ def dispatch_sums(eng) -> dict:
             for f in ("score", "escalate")}
 
 
-def run_serve(cfg: str, ckpt: str, waves: dict, tag: str, extra=()) -> dict:
+def run_serve(cfg: str, ckpt: str, waves: dict, tag: str, extra=(),
+              source=None) -> dict:
     """Serve the files through ``rtdsd_tpu_torch.cli.serve`` (1 s windows,
     0.5 s hop, ``--per_window --out``) with every launch counter zeroed
     just before -> launches, the engine, the window lines, the stderr
-    lines and the wall. Every file's windows must sit at serve_starts with
-    finite scores, and its aggregate be finite, on stdout and in --out."""
+    lines and the wall; ``source`` (``["--artifact", prefix]``) serves a
+    bundle, whose geometry is baked, in place of ``cfg`` and ``ckpt``.
+    Every file's windows must sit at serve_starts with finite scores, and
+    its aggregate be finite, on stdout and in --out."""
     from rtdsd_tpu_torch.cli import serve as cli
 
     out = os.path.join(WORK, "serve", f"{tag}.txt")
@@ -1584,9 +1621,10 @@ def run_serve(cfg: str, ckpt: str, waves: dict, tag: str, extra=()) -> dict:
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
-            cli.main(["--config", cfg, "--ckpt", ckpt, "--audio", *paths,
-                      "--window_sec", str(SERVE_WINDOW / 16000), "--hop_sec",
-                      str(SERVE_HOP / 16000), "--per_window", "--out", out,
+            head = source or ["--config", cfg, "--ckpt", ckpt,
+                              "--window_sec", str(SERVE_WINDOW / 16000),
+                              "--hop_sec", str(SERVE_HOP / 16000)]
+            cli.main([*head, "--audio", *paths, "--per_window", "--out", out,
                       *extra])
         torch.cuda.synchronize()
     finally:
@@ -1678,7 +1716,7 @@ def serve_path(ckpt: str, screener_ckpt: str, sd: dict, screener_sd: dict,
                                f"of {n_win} windows (band {band} around {center})")
         for k, v in r["launches"].items():
             total[k] = total.get(k, 0) + v
-    return total, waves
+    return total, waves, (center, band)
 
 
 def serve_all(eng, waves: list) -> list:
@@ -2375,13 +2413,14 @@ def write_train_config(root: str, ssl_pt: str) -> str:
     return path
 
 
-def train_model(sd: dict, dtype: torch.dtype, dev):
-    """The main-path XLSR_AASIST built to train (remat, kernels on)."""
+def train_model(sd: dict, dtype: torch.dtype, dev, w2v=None):
+    """The main-path XLSR_AASIST built to train (remat, kernels on);
+    ``w2v``, overrides of its encoder config (a remat policy)."""
     from rtdsd_tpu_torch.models.convert import load_reference_state_dict
     from rtdsd_tpu_torch.models.registry import get_model
 
     spec = get_model("XLSR_AASIST", dtype=dtype, remat=True, fused_gat=True,
-                     w2v={"fast_softmax": False})
+                     w2v={"fast_softmax": False, **(w2v or {})})
     spec.module.to(dev).load_state_dict(load_reference_state_dict(sd),
                                         strict=True)
     return spec.module.train()
@@ -2767,6 +2806,102 @@ def train_timed(sd: dict, dev, card: str) -> None:
         raise RuntimeError(f"4j (c): a train step launched {launches}")
     del state, model
     torch.cuda.empty_cache()
+
+
+# 4j (e): the remat settings, each a schedule of what the backward keeps
+REMAT_SETTINGS = (("full", {}), ("hidden", {"remat_policy": "hidden"}),
+                  ("dots", {"remat_policy": "dots"}),
+                  ("save_every_4", {"remat_save_every": 4}))
+# of each gradient's max: a policy keeps other tensors, the arithmetic is
+# the same, so a larger gap is a fault
+REMAT_GRAD_TOL = 1e-6
+REMAT_STEPS = 3
+
+
+def remat_path(sd: dict, dev, card: str) -> None:
+    """4j (e): (1) one float32 train step (TF32 off, deterministic
+    algorithms, batch 4) on the first 4 layers at full width under each
+    remat setting: every gradient within REMAT_GRAD_TOL of its max of the
+    ``full`` step's; (2) bf16 train steps at batch 32 at full depth under
+    each setting: ms a step (median [min, max] of REMAT_STEPS after a
+    warm-up), ``max_memory_allocated`` and one step's launches."""
+    from rtdsd_tpu_torch.engine import steps
+    from rtdsd_tpu_torch.models.convert import load_reference_state_dict
+    from rtdsd_tpu_torch.models.registry import get_model
+    from rtdsd_tpu_torch.models.wav2vec2 import select_layers
+
+    waves, labels = train_batch(dev, PARITY_BATCH)
+    ref = load_reference_state_dict(sd)
+    grads = {}
+    for name, w2v in REMAT_SETTINGS:
+        spec = get_model("My_XLSR_AASIST", dtype=torch.float32, remat=True,
+                         num_layers=PARITY_LAYERS, fused_gat=True,
+                         w2v={"fast_softmax": False, **w2v})
+        model = spec.module.to(dev)
+        model.load_state_dict(select_layers(ref, spec.layer_indices),
+                              strict=True)
+        with deterministic():
+            grads[name] = _train_step_outputs(model.train(), waves, labels,
+                                              TRAIN_LR)["grads"]
+        del model
+    full = grads["full"]
+    gaps, bad = {}, []
+    for name in grads:
+        if name == "full":
+            continue
+        rel = {}
+        for k, g in full.items():
+            d = float((grads[name][k] - g).abs().max())
+            top = float(g.abs().max())
+            rel[k] = (d, d / top if top else (0.0 if d == 0 else float("inf")))
+        worst = max(rel, key=lambda k: rel[k][1])
+        gaps[name] = (max(v[0] for v in rel.values()), worst, rel[worst][1],
+                      sum(v[0] == 0 for v in rel.values()), len(rel))
+        if rel[worst][1] > REMAT_GRAD_TOL:
+            bad.append(name)
+    log(f"4j (e) f32 train step on layers 0-{PARITY_LAYERS - 1} at full "
+        f"width, batch {PARITY_BATCH} (TF32 off, deterministic algorithms), "
+        f"each remat setting against full: " + "; ".join(
+            f"{n} max|d| {a:.3g}, worst {k} at {r:.3g} of its max (tol "
+            f"{REMAT_GRAD_TOL:g}), {z}/{t} gradients bit for bit"
+            for n, (a, k, r, z, t) in gaps.items()))
+    if bad:
+        raise RuntimeError(f"4j (e): remat settings {bad} change gradients")
+    del grads, full
+    torch.cuda.empty_cache()
+
+    waves, labels = train_batch(dev, TRAIN_BATCH)
+    rows = []
+    for name, w2v in REMAT_SETTINGS:
+        model = train_model(sd, torch.bfloat16, dev, w2v)
+        state = steps.TrainState(model, steps.make_optimizer(model, TRAIN_LR,
+                                                             1e-4))
+        step = steps.make_train_step(rawboost_algo=4)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        step(state, waves, labels, TRAIN_SEED)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        times = []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            step(state, waves, labels, TRAIN_SEED)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        rows.append((name, times, torch.cuda.max_memory_allocated(), base,
+                     launches["mha_small_t"]))
+        del state, model, step
+        torch.cuda.empty_cache()
+    peak_full = rows[0][2]
+    log(f"4j (e) bf16 train step, batch {TRAIN_BATCH}, 24 layers (RawBoost4, "
+        f"fused_gat, fast_softmax off), {card}, per remat setting: " + "; ".join(
+            f"{n} {statistics.median(t):.1f} ms [{min(t):.1f}, {max(t):.1f}], "
+            f"max_memory_allocated {p / 2**30:.3f} GiB ({(p - peak_full) / 1e9:+.3f} "
+            f"GB vs full; {b / 2**30:.2f} GiB before the first step), "
+            f"{a} mha_small_t launches a step"
+            for n, t, p, b, a in rows))
 
 
 # ------------------------------------------------------------ phase 4k
@@ -3248,6 +3383,7 @@ def kd_cli(ckpt: str, ssl_pt: str, card: str) -> dict:
         if len(vals) != DEV_CLIPS or not np.all(np.isfinite(vals)) \
                 or got != want:
             raise RuntimeError(f"4l (a): student scoring ({mode}) failed")
+    shutil.copytree(last, os.path.join(WORK, "kd_last"), dirs_exist_ok=True)
     shutil.rmtree(runs)
     return launches
 
@@ -3513,6 +3649,456 @@ def kd_path(ckpt: str, ssl_pt: str, sd: dict, dev, card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 4m
+
+# runs a CLI module in this fresh process, then writes its launch counters
+# and the model-defining modules it imported to argv[1] as JSON
+COUNTED_RUN = r"""
+import json, runpy, sys
+out, mod = sys.argv[1], sys.argv[2]
+sys.argv = [mod] + sys.argv[3:]
+code = 0
+try:
+    runpy.run_module(mod, run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code or 0
+models = sorted(m for m in sys.modules if m in (
+    "rtdsd_tpu_torch.models.wav2vec2", "rtdsd_tpu_torch.models.aasist",
+    "rtdsd_tpu_torch.models.conformer", "rtdsd_tpu_torch.models.zoo")
+    or m.split(".")[0] in ("jax", "flax", "rtdsd_tpu"))
+import torch
+from rtdsd_tpu_torch.ops import attention, convstack, gat, quant
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+with open(out, "w") as f:
+    json.dump({"models": models, "launches": {fn.__name__: fn.launches for fn in (
+        attention.mha_small_t, gat.fused_gat_aggregate,
+        gat.fused_htrg_gat_aggregate, quant.quantize_int8, convstack.ln_gelu,
+        convstack.conv_ln_gelu_grouped)}}, f)
+sys.exit(code)
+"""
+
+
+def run_counted(module: str, args: list, tag: str) -> tuple:
+    """``python -m module args`` in a fresh process, counted -> (launches,
+    stdout, wall s, model-defining modules it imported)."""
+    out = os.path.join(WORK, "export", f"{tag}.counts.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", COUNTED_RUN, out, module,
+                           *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, PYTHONPATH=ROOT))
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise RuntimeError(f"{module} {tag}: rc {proc.returncode}\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    with open(out) as f:
+        got = json.load(f)
+    return got["launches"], proc.stdout, wall, got["models"]
+
+
+def _sizes(prefix: str, exts) -> str:
+    return ", ".join(f"{e} {os.path.getsize(prefix + e) / 2**20:.2f} MiB"
+                     for e in exts)
+
+
+def _score_file(path: str) -> dict:
+    with open(path) as f:
+        return {l.split(" ")[0]: float(l.split(" ")[1])
+                for l in f.read().splitlines()}
+
+
+def _held_scores(what: str, got: dict, want: dict) -> float:
+    """max |d| of two {id: score} maps over the same ids, gated at the
+    CLI-versus-forward check of main(): 0.05 x max(1, max |score|)."""
+    if sorted(got) != sorted(want) or not np.all(np.isfinite(list(got.values()))):
+        raise RuntimeError(f"{what}: ids or finite scores differ")
+    d = max(abs(got[k] - want[k]) for k in want)
+    scale = max(1.0, max(abs(v) for v in want.values()))
+    if d > 0.05 * scale:
+        raise RuntimeError(f"{what}: max|d| {d} > 0.05 x {scale}")
+    return d
+
+
+def export_batch(ckpt: str, cli_scores: dict, card: str) -> dict:
+    """4m (a): ``cli.export`` in a fresh process on 4a's bf16 ``.pt``
+    (``--batch sym --platforms cuda``), then ``cli.infer`` in another on
+    4a's 32 clips, held to 4a's CLI scores; then 4l's student from
+    ``last_kd/`` (``--student --w8a8 --batch 32``, in this process) and
+    its artifact on 4l's dev clips, held to 4l's ``--w8a8`` student
+    scores. -> the launches of the four runs."""
+    from rtdsd_tpu_torch.cli import export, infer
+
+    root = os.path.join(WORK, "export")
+    art = os.path.join(root, "xlsr_aasist.tpex")
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    e_launches, _, e_wall, _ = run_counted(
+        "rtdsd_tpu_torch.cli.export",
+        ["--config", write_config(WORK, "bfloat16"), "--ckpt", ckpt, "--batch",
+         "sym", "--platforms", "cuda", "--out", art], "export")
+    meta = json.load(open(art + ".json"))
+    files = [os.path.join(WORK, "audio", f"{u}.flac") for u in sorted(cli_scores)]
+    out = os.path.join(root, "infer_scores.txt")
+    i_launches, _, i_wall, models = run_counted(
+        "rtdsd_tpu_torch.cli.infer",
+        ["--artifact", art, "--audio", *files, "--batch_size", str(B), "--out",
+         out], "infer")
+    d = _held_scores("4m (a) infer", _score_file(out), cli_scores)
+    batches = -(-N_CLIPS // B)
+    want = launches_want(24 * batches, batches)
+    log(f"4m (a) cli.export (fresh process) XLSR_AASIST bf16 --batch sym "
+        f"--platforms cuda: wall {e_wall:.1f} s incl. start, load and trace; "
+        f"program {meta['artifact_bytes'] / 2**20:.3f} MiB, params "
+        f"{meta['params_bytes'] / 2**20:.1f} MiB, in_avals {meta['in_avals']}; "
+        f"launches {e_launches}; cli.infer (fresh process) on {len(files)} "
+        f"clips at batch {B}: wall {i_wall:.1f} s incl. start, program and "
+        f"sidecar load; scores vs 4a's CLI scores max|d| {d:.4g} (tol 0.05 x "
+        f"max(1, |score|)); launches {i_launches} (want {want}); model or JAX "
+        f"modules imported by infer: {models}; {card}")
+    if e_launches != launches_want() or i_launches != want or models:
+        raise RuntimeError("4m (a): export or infer launches or imports")
+    add(e_launches)
+    add(i_launches)
+
+    train = os.path.join(WORK, "train")
+    sart = os.path.join(root, "student_w8a8.tpex")
+    reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        export.main(["--config", os.path.join(train, "kd.json"), "--ckpt",
+                     os.path.join(WORK, "kd_last"), "--student", "--w8a8",
+                     "--batch", str(TRAIN_BATCH), "--platforms", "cuda",
+                     "--out", sart])
+    torch.cuda.synchronize()
+    se_wall, se_launches = time.perf_counter() - t0, read_counters()
+    smeta = json.load(open(sart + ".json"))
+    want_kd = _score_file(os.path.join(train, "kd_scores_la19_w8a8.txt"))
+    sfiles = [os.path.join(train, "audio", f"{u}.flac") for u in sorted(want_kd)]
+    sout = os.path.join(root, "student_infer_scores.txt")
+    reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        infer.main(["--artifact", sart, "--audio", *sfiles, "--out", sout])
+    torch.cuda.synchronize()
+    si_wall, si_launches = time.perf_counter() - t0, read_counters()
+    d = _held_scores("4m (a) student infer", _score_file(sout), want_kd)
+    sb = -(-len(sfiles) // TRAIN_BATCH)
+    want_s = launches_want(6 * sb, sb)
+    log(f"4m (a) student (last_kd/, --student --w8a8 --batch {TRAIN_BATCH}, "
+        f"4l's scoring batch): export wall "
+        f"{se_wall:.1f} s, program {smeta['artifact_bytes'] / 2**20:.3f} MiB, "
+        f"params {smeta['params_bytes'] / 2**20:.1f} MiB (int8 vals), launches "
+        f"{se_launches} (want 36 quantize_int8); infer on {len(sfiles)} dev "
+        f"clips: wall {si_wall:.1f} s, scores vs 4l's --w8a8 student scores "
+        f"max|d| {d:.4g}; launches {si_launches} (want {want_s})")
+    if se_launches != launches_want(quantize=36) or si_launches != want_s:
+        raise RuntimeError("4m (a): student export or infer launches")
+    add(se_launches)
+    add(si_launches)
+    return total
+
+
+def export_stream(ckpt: str, incremental: dict) -> dict:
+    """4m (b): ``cli.export --streaming`` of 4a's model (4 s windows, 2 s
+    hop, --platforms cuda), then ``cli.infer --per_window --batch_size 8``
+    on 4g's 16 kHz files (4g's batches): windows at 4g's incremental starts,
+    scores within 0.05 x max(1, |score|) of ``cli.stream --incremental``'s.
+    -> launches of export and infer."""
+    from rtdsd_tpu_torch.cli import export, infer
+
+    prefix = os.path.join(WORK, "export", "stream_art")
+    reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        export.main(["--config", write_config(WORK, "bfloat16"), "--ckpt", ckpt,
+                     "--streaming", "--hop_sec", str(STREAM_HOP / 16000),
+                     "--platforms", "cuda", "--out", prefix])
+    torch.cuda.synchronize()
+    e_wall, e_launches = time.perf_counter() - t0, read_counters()
+    paths = [p for p in incremental
+             if os.path.basename(p) in ("long.wav", "short.wav")]
+    buf = io.StringIO()
+    reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        infer.main(["--artifact", prefix, "--audio", *paths, "--per_window",
+                    "--batch_size", str(STREAM_BATCH)])
+    torch.cuda.synchronize()
+    i_wall, launches = time.perf_counter() - t0, read_counters()
+    worst, n = 0.0, 0
+    for path in paths:
+        uid = os.path.splitext(os.path.basename(path))[0]
+        got = [l.split(" ") for l in buf.getvalue().splitlines()
+               if l.startswith(uid + "#")]
+        want = incremental[path]
+        if [g[1] for g in got] != [f"{s / 16000:.2f}" for s in sorted(want)]:
+            raise RuntimeError(f"4m (b) {uid}: windows {[g[1] for g in got]}")
+        for g, s in zip(got, sorted(want)):
+            worst = max(worst, abs(float(g[2]) - want[s]) / max(1.0, abs(want[s])))
+            n += 1
+    calls = sum(-(-len(incremental[p]) // STREAM_BATCH) for p in paths)
+    want_l = launches_want(24 * calls, calls)
+    log(f"4m (b) streaming bundle: export wall {e_wall:.1f} s ("
+        f"{_sizes(prefix, ('.conv', '.score', '.params'))}), launches "
+        f"{e_launches}; infer --per_window --batch_size {STREAM_BATCH} on "
+        f"{len(paths)} files, {n} windows in {calls} score calls: wall "
+        f"{i_wall:.2f} s; vs cli.stream "
+        f"--incremental (batch {STREAM_BATCH}) max |d| / max(1, |score|) "
+        f"{worst:.3g} (tol 0.05); launches {launches} (want {want_l})")
+    if worst > 0.05 or launches != want_l or e_launches != launches_want():
+        raise RuntimeError("4m (b): streaming bundle scores or launches")
+    return launches
+
+
+def export_engine_ticks(eng, bank: list, streams: int) -> tuple:
+    """SERVE_TICKS ticks paced to the hop on ``streams`` streams (one
+    second of audio first) -> (tick ms list, device ms a tick)."""
+    hs = [eng.open_stream(i) for i in range(streams)]
+    waves = [np.roll(bank[i % len(bank)], 800 * i) for i in range(streams)]
+    pos = [0]
+
+    def tick():
+        c = pos[0]
+        for h, w in zip(hs, waves):
+            eng.push(h, w[c:c + SERVE_HOP])
+        pos[0] = c + SERVE_HOP
+        return eng.poll()
+
+    tick(), tick()
+    counts0 = dict(eng.dispatch_counts)
+    ticks, start = [], time.perf_counter()
+    for k in range(SERVE_TICKS):
+        t0 = time.perf_counter()
+        tick()
+        ticks.append((time.perf_counter() - t0) * 1e3)
+        rest = start + (k + 1) * SERVE_HOP / 16000 - time.perf_counter()
+        if rest > 0:
+            time.sleep(rest)
+    costs = eng.device_costs(n=3)
+    dev_ms = sum(costs.get(k, 0.0) * (v - counts0[k]) / SERVE_TICKS
+                 for k, v in eng.dispatch_counts.items())
+    for h in hs:
+        eng.close_stream(h)
+    return ticks, dev_ms
+
+
+def export_serving(ckpt: str, screener_ckpt: str, sd: dict, screener_sd: dict,
+                   dev, files: dict, band: tuple, card: str) -> dict:
+    """4m (c): ``cli.export --serving`` at 4h's geometry (512 streams, 1 s
+    windows, 0.5 s hop, bf16, int16) with 4h's cascade (the screener
+    primary, 4a's XLSR_AASIST escalating over 4h's band); the artifact
+    engine against the checkpoint-backed engine at the same fixed shapes
+    on 4h's 32 files (the same windows, flags and dispatch counts, scores
+    within 0.05 x max(1, |score|)); both engines timed in turns at 512
+    streams; then ``cli.serve --artifact`` and ``cli.daemon --artifact``
+    (a SIGHUP reload from the sidecars) with exact launches. -> launches
+    of export, serve and daemon."""
+    from rtdsd_tpu_torch.cli import export
+    from rtdsd_tpu_torch.engine.serving import MultiStreamScorer
+
+    center, half = band
+    prefix = os.path.join(WORK, "export", "serve_art")
+    cfg_s = write_config(WORK, "bfloat16", "My_XLSR_AASIST", SCREENER_KWARGS,
+                         name="screener")
+    reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        export.main(["--config", write_config(WORK, "bfloat16"), "--ckpt", ckpt,
+                     "--serving", "--max_streams", "512", "--duration_sec",
+                     str(SERVE_WINDOW / 16000), "--hop_sec",
+                     str(SERVE_HOP / 16000), "--cascade_ckpt", screener_ckpt,
+                     "--cascade_config", cfg_s, "--cascade_band", repr(half),
+                     "--cascade_center", repr(center), "--platforms", "cuda",
+                     "--out", prefix])
+    torch.cuda.synchronize()
+    e_wall, e_launches = time.perf_counter() - t0, read_counters()
+    meta = json.load(open(prefix + ".json"))
+    log(f"4m (c) serving bundle export (512 streams, extend "
+        f"{meta['extend_batch']}, score {meta['score_batch']}, escalate "
+        f"{meta['esc_batch']}, int16, cascade band {half:.4g} around "
+        f"{center:.4g}): wall {e_wall:.1f} s, "
+        f"{_sizes(prefix, ('.extend', '.score', '.escalate', '.params', '.esc.params'))}"
+        f", launches {e_launches}")
+
+    flagship = build_model(sd, torch.bfloat16, dev)
+    screener = build_model(screener_sd, torch.bfloat16, dev, **SCREENER_BUILD)
+    ckpt_eng = MultiStreamScorer(
+        screener, screener.w2v_cfg, duration=SERVE_WINDOW, hop=SERVE_HOP,
+        max_streams=512, escalate=flagship, escalate_band=half,
+        escalate_center=center, transport_dtype="int16", extend_rungs=0,
+        auto_provision=False)
+    art_eng, _ = export.load_serving(prefix)
+    waves = list(files.values())
+    res = {}
+    for name, eng in (("ckpt", ckpt_eng), ("artifact", art_eng)):
+        eng.warmup()
+        eng.dispatch_counts = dict.fromkeys(eng.dispatch_counts, 0)
+        res[name] = serve_all(eng, waves)
+    a, c = res["artifact"], res["ckpt"]
+    same = sum(x[2] == y[2] for x, y in zip(a, c))
+    d = max(abs(x[2] - y[2]) / max(1.0, abs(y[2])) for x, y in zip(a, c))
+    counts = {n: {k: v for k, v in e.dispatch_counts.items() if v}
+              for n, e in (("ckpt", ckpt_eng), ("artifact", art_eng))}
+    log(f"4m (c) artifact engine vs checkpoint engine (fixed shapes), "
+        f"{len(waves)} files: {len(a)} windows, {sum(x[3] for x in a)} "
+        f"escalated; {same} scores equal bit for bit, max |d| / max(1, "
+        f"|score|) {d:.3g} (tol 0.05); dispatches {counts}")
+    if [x[:2] + x[3:] for x in a] != [y[:2] + y[3:] for y in c] or d > 0.05 \
+            or counts["ckpt"] != counts["artifact"]:
+        raise RuntimeError("4m (c): the artifact engine serves otherwise")
+    rng = np.random.default_rng(5)
+    bank = [_serve_wave(rng, SERVE_WINDOW + (SERVE_TICKS + 4) * SERVE_HOP, i)
+            for i in range(32)]
+    timed = {}
+    for name, eng in (("ckpt", ckpt_eng), ("artifact", art_eng),
+                      ("artifact", art_eng), ("ckpt", ckpt_eng)):
+        ticks, dev_ms = export_engine_ticks(eng, bank, 512)
+        eng.drain()
+        timed.setdefault(name, []).append((ticks, dev_ms))
+    log(f"4m (c) 512 streams with the cascade, {SERVE_TICKS} ticks paced to "
+        f"the hop, in turns (ckpt, artifact, artifact, ckpt), {card}: " + "; ".join(
+            f"{n} tick p50 {np.percentile(t, 50):.2f} / p95 "
+            f"{np.percentile(t, 95):.2f} ms, device {dm:.2f} ms/tick"
+            for n, runs in timed.items() for t, dm in runs))
+    del ckpt_eng, art_eng, flagship, screener
+    torch.cuda.empty_cache()
+
+    total = dict(e_launches)
+    r = run_serve(None, None, files, "artifact", source=["--artifact", prefix])
+    n = dispatch_sums(r["eng"])
+    score, esc = n["score"] + 1, n["escalate"] + 1
+    want = launches_want(6 * score + 24 * esc, score + esc)
+    marks = [m for ws in r["windows"].values() for w in ws for m in w[2]]
+    tick = next(l for l in r["err"] if "tick p50" in l)
+    log(f"4m (c) cli.serve --artifact: {sum(map(len, r['windows'].values()))} "
+        f"windows, {marks.count('escalated')} escalated; dispatches "
+        f"{r['eng'].dispatch_counts}; launches {r['launches']} (want {want}); "
+        f"{tick.strip()}; CLI wall {r['wall']:.2f} s incl. program and "
+        f"sidecar load")
+    if r["launches"] != want:
+        raise RuntimeError(f"kernel launches {r['launches']} != {want}")
+    for k, v in r["launches"].items():
+        total[k] = total.get(k, 0) + v
+    for k, v in daemon_artifact(prefix, files).items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def daemon_artifact(prefix: str, files: dict) -> dict:
+    """4m (c): ``cli.daemon --artifact`` in this (main) thread: 8 of 4h's
+    files streamed through ``ServeClient``, SIGHUP (the weight sidecars
+    read again), 8 more, SIGTERM; every window once and finite, the reload
+    line, launches exactly (6 + 24 escalation) x the dispatches, the
+    warm-ups' included -> launches."""
+    import signal
+    import threading
+
+    from rtdsd_tpu_torch.cli import daemon as cli
+    from rtdsd_tpu_torch.engine.netserve import ServeClient
+
+    sock = _sock_path("artifact.sock")
+    err_path = os.path.join(WORK, "export", "daemon_artifact.stderr")
+    engines, build = [], cli.build_engine
+    state = {"errors": [], "windows": {}}
+    paths = list(files)
+
+    def capture(args, n):
+        eng, sr = build(args, n)
+        engines.append(eng)
+        return eng, sr
+
+    def text():
+        with open(err_path) as f:
+            return f.read()
+
+    def wait_for(cond, what, timeout):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"daemon --artifact: {what}")
+            time.sleep(0.05)
+
+    def stream(batch):
+        client = ServeClient(unix_path=sock)
+        hs = {client.open(p): p for p in batch}
+        for h, p in hs.items():
+            client.push(h, files[p])
+            client.close(h, flush=True)
+        got = client.collect(set(hs))
+        client.close_socket()
+        for h, p in hs.items():
+            state["windows"][p] = sorted(got[h])
+
+    def drive():
+        try:
+            wait_for(lambda: os.path.exists(sock), "no socket", 300)
+            stream(paths[:8])
+            os.kill(os.getpid(), signal.SIGHUP)
+            wait_for(lambda: "reloaded" in text(), "no reload line", 120)
+            stream(paths[8:16])
+        except Exception as e:      # raised after the stop
+            state["errors"].append(e)
+        finally:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    cli.build_engine = capture
+    reset_counters()
+    t0 = time.perf_counter()
+    helper = threading.Thread(target=drive, daemon=True)
+    try:
+        with open(err_path, "w") as err, contextlib.redirect_stderr(err):
+            helper.start()
+            cli.main(["--artifact", prefix, "--listen", f"unix:{sock}",
+                      "--stats_every", "0"])
+    finally:
+        cli.build_engine = build
+        helper.join(60)
+    torch.cuda.synchronize()
+    launches, wall = read_counters(), time.perf_counter() - t0
+    if state["errors"]:
+        log(f"daemon --artifact stderr, its end:\n{text()[-4000:]}")
+        raise state["errors"][0]
+    eng = engines[0]
+    n = dispatch_sums(eng)
+    score, esc = n["score"] + 1, n["escalate"] + 1
+    want = launches_want(6 * score + 24 * esc, score + esc)
+    wins = {p: [s for s, _, _ in w] for p, w in state["windows"].items()}
+    ok = all(wins[p] == serve_starts(len(files[p])) and
+             np.all(np.isfinite([v for _, v, _ in state["windows"][p]]))
+             for p in wins)
+    log(f"4m (c) cli.daemon --artifact: 16 files over the socket, 8 before "
+        f"and 8 after a SIGHUP, {sum(map(len, wins.values()))} windows once "
+        f"each and finite: {ok}; "
+        + next(l for l in text().splitlines() if "reloaded" in l).strip()
+        + f"; dispatches {eng.dispatch_counts}; launches {launches} (want "
+        f"{want}); wall {wall:.1f} s incl. program and sidecar load")
+    if not ok or launches != want or "[daemon] stopped" not in text():
+        raise RuntimeError("4m (c): daemon --artifact windows or launches")
+    return launches
+
+
+def export_path(ckpt: str, screener_ckpt: str, sd: dict, screener_sd: dict,
+                dev, cli_scores: dict, incremental: dict, serve_waves: dict,
+                band: tuple, card: str) -> dict:
+    """Phase 4m; -> the launches of its exports and artifact runs."""
+    os.makedirs(os.path.join(WORK, "export"), exist_ok=True)
+    t0 = time.perf_counter()
+    total = {}
+    for launches in (export_batch(ckpt, cli_scores, card),
+                     export_stream(ckpt, incremental),
+                     export_serving(ckpt, screener_ckpt, sd, screener_sd, dev,
+                                    serve_waves, band, card)):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    shutil.rmtree(os.path.join(WORK, "kd_last"))
+    log(f"4m: {time.perf_counter() - t0:.1f} s, {card}")
+    return total
+
+
 def frontend_path(sd: dict, dev) -> dict:
     """The op fused_conv_frontend at full width on the model's front-end
     weights, against the port's unfused ConvFeatureExtractor."""
@@ -3684,6 +4270,62 @@ def plain_kernels():
             setattr(m, n, f)
 
 
+@contextlib.contextmanager
+def ctypes_binding():
+    """Swap the models' kernel calls for the kernels' ctypes launches
+    called directly (``attention.launch``, ``gat.launch_gat``,
+    ``gat.launch_htrg``), as the port bound them before they were
+    ``torch.library`` operators: the same kernels without the
+    dispatcher."""
+    from rtdsd_tpu_torch.models import aasist, wav2vec2
+    from rtdsd_tpu_torch.ops import attention, gat
+
+    swaps = [(wav2vec2, "mha_small_t",
+              lambda q, k, v, scale=None: attention.launch(
+                  q, k, v, q.shape[-1] ** -0.5 if scale is None else scale)),
+             (aasist, "fused_gat_aggregate",
+              lambda x, w, b, a, t=1.0: gat.launch_gat(x, w, b, a, t)),
+             (aasist, "fused_htrg_gat_aggregate",
+              lambda x, w, b, w11, w22, w12, n1, t=1.0: gat.launch_htrg(
+                  x, w, b, w11, w22, w12, n1, t))]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    try:
+        for m, n, f in swaps:
+            setattr(m, n, f)
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def binding_cost(model, waves, card: str) -> None:
+    """The torch.library binding's cost: the bf16 forward at batch 16 and 1
+    with the operators (the port's binding) and with the ctypes launches
+    called directly, in turns (operator, ctypes, ctypes, operator) over
+    STEADY_REPEATS rounds; both launch the same kernels the same number
+    of times."""
+    times = {(k, b): [] for k in ("operator", "ctypes") for b in (B, 1)}
+    launches = {}
+    for _ in range(STEADY_REPEATS):
+        for kind in ("operator", "ctypes", "ctypes", "operator"):
+            ctx = ctypes_binding if kind == "ctypes" else contextlib.nullcontext
+            with ctx():
+                for b in (B, 1):
+                    times[(kind, b)].append(steady_ms_per_clip(model, waves[:b]))
+                reset_counters()
+                with torch.inference_mode():
+                    model(waves[:1])
+                launches[kind] = read_counters()
+    log(f"binding cost, bf16 forward ms/clip, median [min, max] of "
+        f"{2 * STEADY_REPEATS} runs in turns, {card}: " + ", ".join(
+            f"{k} batch {b} {statistics.median(t):.4f} [{min(t):.4f}, "
+            f"{max(t):.4f}]" for (k, b), t in times.items())
+        + f"; launches a batch-1 forward: {launches}")
+    if launches["operator"] != launches["ctypes"] \
+            or launches["operator"] != launches_want(24, 1):
+        raise RuntimeError(f"binding launches {launches}")
+
+
 def build_model(sd: dict, dtype: torch.dtype, dev, fast_softmax=False,
                 mode: str = "", name: str = "XLSR_AASIST", layers=None):
     """The main-path model (or the Conformer, ``name`` "XLSR_Conformer";
@@ -3799,10 +4441,10 @@ def main() -> int:
     conformer_scores = conformer_path(ckpts["conformer"])
     cascade_path(ckpts["conformer"], ckpts["screener"], conformer_scores)
     realtime_path(sd, dev)
-    stream_launches = stream_path(ckpt, ckpts["conformer"])
+    stream_launches, incremental = stream_path(ckpt, ckpts["conformer"])
     stream_device(sd, dev, os.path.join(WORK, "stream", "long.wav"))
-    serve_launches, serve_waves = serve_path(ckpt, ckpts["screener"], sd,
-                                             sds["screener"], dev)
+    serve_launches, serve_waves, band = serve_path(
+        ckpt, ckpts["screener"], sd, sds["screener"], dev)
     bf16_serving = serve_device(sd, sds["screener"], dev, serve_waves)
     daemon_parity(sd, dev, serve_waves)
     daemon_launches, reload_peak = daemon_cli(ckpt, serve_waves)
@@ -3813,7 +4455,11 @@ def main() -> int:
     train_parity(sd, dev)
     attention_grad_check(dev)
     train_timed(sd, dev, card)
+    remat_path(sd, dev, card)
     kd_launches = kd_path(ckpt, ssl_pt, sd, dev, card)
+    export_launches = export_path(ckpt, ckpts["screener"], sd, sds["screener"],
+                                  dev, run["scores"], incremental, serve_waves,
+                                  band, card)
     conformer_launches = conformer_train_path(ssl_pt, dev, card)
 
     # phase 5: one f32 batch, kernels against plain versions, TF32 off
@@ -3882,6 +4528,7 @@ def main() -> int:
     for _ in range(STEADY_REPEATS):
         for (m, b), times in steady.items():
             times.append(steady_ms_per_clip(models[m], waves[:b]))
+    binding_cost(bf16, waves, card)
     del models, bf16, conformer
     log(f"steady forward, ms/clip (bf16 compute; conformer: XLSR_Conformer), "
         f"median [min, max] of "
@@ -3909,6 +4556,7 @@ def main() -> int:
                     train_launches=train_launches[k],
                     conformer_train_launches=conformer_launches[k],
                     kd_launches=kd_launches[k],
+                    export_launches=export_launches[k],
                     path=paths.get(k, "bf16 CLI scoring, 2 batches"), **rec)
                for k, (rec, route, src, rep) in records.items()]
     print(json.dumps({"kernels": kernels}))

@@ -10,12 +10,14 @@ computed. Protocol and threading: ``rtdsd_tpu_torch/engine/netserve.py``.
 
 All of ``cli/serve.py``'s engine flags apply (--window_sec/--hop_sec,
 --w8a8, --cascade_ckpt, --score_batch/--auto_batch, --transport, --device,
-...). --max_streams is required: a daemon has no file list to infer the
-slot count from. The device defaults to ``cuda``; without a GPU the daemon
-raises unless ``--device cpu`` is given.
+--artifact, ...). --max_streams is required unless the daemon serves an
+``--artifact`` bundle, which bakes the slot count: a daemon has no file
+list to infer it from. The device defaults to ``cuda``; without a GPU the
+daemon raises unless ``--device cpu`` is given.
 
 Signals: SIGINT and SIGTERM stop the daemon; SIGHUP reads --ckpt (and
---cascade_ckpt) again and swaps the weights in between ticks.
+--cascade_ckpt), or an ``--artifact`` bundle's weight sidecars, again and
+swaps the weights in between ticks.
 """
 
 from __future__ import annotations
@@ -52,9 +54,10 @@ def parse_args(argv=None):
     p.add_argument("--stats_every", type=float, default=60.0,
                    help="stderr stats interval in seconds (0 = off)")
     args = p.parse_args(argv)
-    if not args.max_streams:
+    if not args.max_streams and not args.artifact:
         p.error("--max_streams is required for the daemon (fixed dispatch "
-                "shapes; no file list to infer it from)")
+                "shapes; no file list to infer it from), unless it serves "
+                "an --artifact bundle, which bakes the slot count")
     return args
 
 
@@ -67,7 +70,7 @@ async def _amain(args):
               f"P(bonafide)=sigmoid({cal['platt_a']:.4g}*s"
               f"{cal['platt_b']:+.4g}) from {args.calibration}",
               file=sys.stderr, flush=True)
-    eng, sr = build_engine(args, args.max_streams)
+    eng, sr = build_engine(args, args.max_streams or 0)
     daemon = ServeDaemon(eng, int(sr), tick_sec=args.tick_sec,
                          max_pending_sec=args.max_pending_sec,
                          idle_timeout_sec=args.idle_timeout_sec,
@@ -100,9 +103,10 @@ async def _amain(args):
                                                      args)
                 await daemon.swap_model(sd, escalate=esc)
                 del sd, esc
-                src = f"checkpoint {args.ckpt}" + (
-                    f" + cascade screener {args.cascade_ckpt}"
-                    if args.cascade_ckpt else "")
+                src = (f"artifact sidecars {args.artifact}*.params"
+                       if args.artifact else f"checkpoint {args.ckpt}"
+                       + (f" + cascade screener {args.cascade_ckpt}"
+                          if args.cascade_ckpt else ""))
                 print(f"[daemon] reloaded {src} (swap #{daemon.reloads})",
                       file=sys.stderr, flush=True)
             except Exception as e:  # noqa: BLE001: keep serving

@@ -14,11 +14,14 @@ mean line per file. stderr reports the tick latency percentiles and the
 throughput; with ``--realtime`` the feed is paced to the wall clock, so
 they are end-to-end serving latencies.
 
-``--ckpt`` is a reference-format ``.pt``, as in ``cli/main.py``. The
-device defaults to ``cuda``; without a GPU the run raises unless
-``--device cpu`` is given. ``--artifact`` (a serving export) and
-``--shard`` (serving over several GPUs) exit: the export and multi-GPU
-parts of the port do not exist yet.
+``--ckpt`` is a reference-format ``.pt``, as in ``cli/main.py``.
+``--artifact PREFIX`` serves from a ``cli.export --serving`` bundle instead
+of ``--config``/``--ckpt``, with no model code: the geometry, the batches,
+the transport and the models are baked into it, and the host's knobs (the
+energy gate, the escalation band and center, the memory guard) stay
+flags. The device defaults to ``cuda``; without a GPU the run raises
+unless ``--device cpu`` is given. ``--shard`` (serving over several GPUs)
+exits: the multi-GPU part of the port does not exist yet.
 """
 
 from __future__ import annotations
@@ -48,8 +51,8 @@ def add_engine_args(p):
     p.add_argument("--config", type=str, default=None)
     p.add_argument("--ckpt", type=str, default=None)
     p.add_argument("--artifact", type=str, default=None,
-                   help="serve from a serving export (not ported yet: "
-                        "exits, ROADMAP Queue 1 item 10)")
+                   help="serve from a cli.export --serving bundle (prefix) "
+                        "instead of --config/--ckpt: no model code")
     p.add_argument("--window_sec", type=float, default=None,
                    help="window length (default: ExpConfig.test_duration_sec)")
     p.add_argument("--hop_sec", type=float, default=None,
@@ -177,10 +180,6 @@ def snap_to_stride(n: int, stride: int, what: str) -> int:
 
 
 def _not_ported(args) -> None:
-    if args.artifact:
-        raise SystemExit("--artifact: the serving export is not ported to "
-                         "rtdsd_tpu_torch yet (ROADMAP Queue 1 item 10); "
-                         "serve with --config/--ckpt")
     if args.shard:
         raise SystemExit("--shard: serving over several GPUs is not ported "
                          "to rtdsd_tpu_torch yet (ROADMAP Queue 1 item 8); "
@@ -225,8 +224,11 @@ def build_engine(args, n_streams: int):
               f"cascade EER {cal.get('cascade_eer', float('nan')):.4f}%)",
               file=sys.stderr)
     args.cascade_esc_rate = esc_rate  # observability (daemon stats)
+    if args.artifact:
+        return _artifact_engine(args, esc_rate)
     if not args.config or not args.ckpt:
-        raise SystemExit("--config and --ckpt are required")
+        raise SystemExit("--config and --ckpt are required "
+                         "(or serve from a bundle with --artifact)")
     device = resolve_device(args.device)
     sys_config, exp_config = load_yaml_config(args.config)
     sr = float(exp_config.sample_rate)
@@ -273,13 +275,66 @@ def build_engine(args, n_streams: int):
     return eng, sr
 
 
+def _artifact_engine(args, esc_rate):
+    """build_engine's ``--artifact`` branch: the bundle's engine, with the
+    flags baked into it at export refused."""
+    from rtdsd_tpu_torch.cli.export import load_serving, read_serving_meta
+
+    if args.config or args.ckpt:
+        raise SystemExit("--artifact replaces --config/--ckpt (the bundle "
+                         "carries the programs and weights)")
+    baked = [flag for flag, val in (
+        ("--window_sec", args.window_sec), ("--hop_sec", args.hop_sec),
+        ("--score_batch", args.score_batch),
+        ("--extend_batch", args.extend_batch),
+        ("--esc_batch", args.esc_batch),
+        ("--cascade_ckpt", args.cascade_ckpt),
+        ("--transport", args.transport)) if val is not None]
+    if args.w8 or args.w8a8 or args.cascade_w8a8 or args.auto_batch \
+            or args.shard or args.f32_transport:
+        baked.append("--w8/--w8a8/--cascade_w8a8/--auto_batch/--shard")
+    if baked:
+        raise SystemExit(
+            f"{', '.join(baked)} are baked into the serving artifact at "
+            f"export time (cli.export --serving); re-export to change them")
+    if esc_rate is not None:
+        print(f"[serve] --artifact: the escalation chunk was sized at "
+              f"export; the calibration's escalation rate "
+              f"({esc_rate * 100:.1f}%) is not applied (only its band and "
+              f"center are)", file=sys.stderr)
+    max_streams = read_serving_meta(args.artifact)["max_streams"]
+    if args.max_streams is not None and args.max_streams != max_streams:
+        raise SystemExit(
+            f"--max_streams {args.max_streams} != the artifact's slot "
+            f"count {max_streams}; re-export to change it (or drop the "
+            f"flag / pass the baked value)")
+    eng, meta = load_serving(
+        args.artifact, device=args.device,
+        hbm_limit=(None if args.hbm_limit_gb is None
+                   else int(args.hbm_limit_gb * 2**30)),
+        gate_rms_dbfs=args.gate_db, gate_score=args.gate_score,
+        escalate_band=args.cascade_band,
+        escalate_center=args.cascade_center,
+        extend_fastpath=not args.no_extend_fastpath)
+    eng.warmup()
+    return eng, float(meta["sample_rate"])
+
+
 def reload_params(args):
     """Read the checkpoint(s) again with build_engine's model prep (the
     same quantization flags; in a cascade --cascade_ckpt is the primary
     and --ckpt the flagship) -> ``(state_dict, escalate_state_dict or
     None)`` for :meth:`MultiStreamScorer.swap_model`, on the serving
-    device."""
+    device. In ``--artifact`` mode the bundle's weight sidecars are read
+    again (overwrite them with a re-export's, then reload)."""
     _not_ported(args)
+    if args.artifact:
+        from rtdsd_tpu_torch.cli.export import (load_serving_params,
+                                                read_serving_meta)
+
+        return load_serving_params(args.artifact,
+                                   read_serving_meta(args.artifact),
+                                   resolve_device(args.device))
     spec, flagship = _load_models(args, *load_yaml_config(args.config),
                                   resolve_device(args.device))
     esc = None if flagship is None else flagship.state_dict()

@@ -519,6 +519,7 @@ class MultiStreamScorer:
                              f"{esc_gather!r}")
         self.esc_gather = esc_gather
         self._esc_model = escalate
+        self._swave = None
         if self._escalate:
             # the sample ring, in frame rows of `stride` samples so that
             # writes and gathers move whole rows
@@ -657,80 +658,99 @@ class MultiStreamScorer:
             return x.float() * (1.0 / 32768.0)
         return x
 
-    def _zero_scatter(self, const_rows, zslots, zpos) -> None:
+    def _zero_scatter(self, feats, swave, const_rows, zslots, zpos) -> None:
         """Write conv(0) feature rows and zero sample rows for the zero
         segments (padded with the scratch slot)."""
         zidx = (zpos[:, None] + self._seg_arange) % self.ring_frames
-        self._feats[zslots[:, None], zidx] = const_rows.to(self.dtype)
-        if self._escalate:
-            zero = torch.zeros((), dtype=self._ttorch, device=self.device)
+        feats[zslots[:, None], zidx] = const_rows.to(self.dtype)
+        if swave is not None:
+            zero = torch.zeros((), dtype=self._ttorch, device=swave.device)
             if self._tail_rows:
                 ztidx = (zpos[:, None] + self.seg_frames
                          + self._tail_arange) % self.ring_frames
-                self._swave[zslots[:, None], ztidx] = zero
-            self._swave[zslots[:, None], zidx] = zero
+                swave[zslots[:, None], ztidx] = zero
+            swave[zslots[:, None], zidx] = zero
+
+    # The dispatches, as functions of the rings (written in place) and the
+    # modules they run: the engine calls them on its own rings and model
+    # under inference_mode (below), and cli/export.py traces them with
+    # torch.export into the programs of a serving bundle.
+
+    def extend_rings(self, extractor, const_rows, feats, swave, segs, slots,
+                     pos, zslots, zpos) -> None:
+        """One extend: the zero segments' rows first, then the conv of the
+        live segments into the feature ring and their samples into the
+        sample ring (``swave``, None without a cascade), the zero-padded
+        tail rows before the full rows. Where segment k's tail row and
+        segment k+1's first row are the same ring row, the ordered writes
+        let the real data win."""
+        self._zero_scatter(feats, swave, const_rows, zslots, zpos)
+        waves = self._decode(segs)
+        if waves.device.type == "cpu":
+            # PyTorch's CPU convolutions pick their algorithm by batch
+            # size, so a row's features would depend on its batch; one row
+            # a call keeps them exact across the extend ladder and the
+            # precomputed zero rows, as XLA's are
+            new = torch.cat([extractor(w[None]) for w in waves])
+        else:
+            new = extractor(waves)
+        idx = (pos[:, None] + self._seg_arange) % self.ring_frames
+        feats[slots[:, None], idx] = new.to(self.dtype)
+        if swave is not None:
+            full = self.seg_frames * self.stride
+            if self._tail_rows:
+                tail = F.pad(segs[:, full:], (
+                    0, self._tail_rows * self.stride - self._tail_len))
+                tidx = (pos[:, None] + self.seg_frames
+                        + self._tail_arange) % self.ring_frames
+                swave[slots[:, None], tidx] = tail.reshape(
+                    -1, self._tail_rows, self.stride)
+            swave[slots[:, None], idx] = segs[:, :full].reshape(
+                -1, self.seg_frames, self.stride)
+
+    def score_windows(self, model, feats, slots, starts) -> torch.Tensor:
+        """(B,) bonafide logits of the windows at ring frames ``starts``."""
+        idx = (starts[:, None] + self._win_arange) % self.ring_frames
+        windows = feats[slots[:, None], idx]  # (B, win_frames, C)
+        return model(None, conv_feats=windows)[:, 1]
+
+    def score_esc_windows(self, model, swave, slots, starts) -> torch.Tensor:
+        """(B,) flagship logits of the windows' raw samples. ``slice``
+        gathers the B slot rows, then each window is a contiguous slice of
+        its doubled row (the doubling takes the ring's wrap); ``flat``
+        gathers per sample. Both give the same samples."""
+        flat = swave.view(swave.shape[0], self.ring_samples)
+        if self.esc_gather == "slice":
+            rows = flat[slots]  # (B, ring_samples)
+            dbl = torch.cat([rows, rows], dim=1)
+            waves = dbl.unfold(1, self.duration, self.stride)[
+                torch.arange(len(slots), device=swave.device), starts]
+        else:
+            sidx = (starts[:, None] * self.stride + self._dur_arange) \
+                % self.ring_samples
+            waves = flat[slots[:, None], sidx]
+        return model(self._decode(waves))[:, 1]
 
     def _extend(self, const_rows, segs, slots, pos, zslots, zpos) -> None:
-        """One extend dispatch: the zero segments' rows first, then the
-        conv of the live segments into the feature ring and their samples
-        into the sample ring, the zero-padded tail rows before the full
-        rows. Where segment k's tail row and segment k+1's first row are
-        the same ring row, the ordered writes let the real data win."""
         with torch.inference_mode():
-            self._zero_scatter(const_rows, zslots, zpos)
-            waves = self._decode(segs)
-            if self.device.type == "cpu":
-                # PyTorch's CPU convolutions pick their algorithm by batch
-                # size, so a row's features would depend on its batch;
-                # one row a call keeps them exact across the extend ladder
-                # and the precomputed zero rows, as XLA's are
-                new = torch.cat([self._extractor(w[None]) for w in waves])
-            else:
-                new = self._extractor(waves)
-            idx = (pos[:, None] + self._seg_arange) % self.ring_frames
-            self._feats[slots[:, None], idx] = new.to(self.dtype)
-            if self._escalate:
-                full = self.seg_frames * self.stride
-                if self._tail_rows:
-                    tail = F.pad(segs[:, full:], (
-                        0, self._tail_rows * self.stride - self._tail_len))
-                    tidx = (pos[:, None] + self.seg_frames
-                            + self._tail_arange) % self.ring_frames
-                    self._swave[slots[:, None], tidx] = tail.reshape(
-                        -1, self._tail_rows, self.stride)
-                self._swave[slots[:, None], idx] = segs[:, :full].reshape(
-                    -1, self.seg_frames, self.stride)
+            self.extend_rings(self._extractor, const_rows, self._feats,
+                              self._swave, segs, slots, pos, zslots, zpos)
 
     def _extend_const(self, const_rows, zslots, zpos) -> None:
         """The zero segments' rows alone, for a tick with no live segment
         (a folded dispatch would pay the conv on an all-padding batch)."""
         with torch.inference_mode():
-            self._zero_scatter(const_rows, zslots, zpos)
+            self._zero_scatter(self._feats, self._swave, const_rows, zslots,
+                               zpos)
 
     def _score(self, slots, starts) -> torch.Tensor:
-        """(B,) bonafide logits of the windows at ring frames ``starts``."""
         with torch.inference_mode():
-            idx = (starts[:, None] + self._win_arange) % self.ring_frames
-            windows = self._feats[slots[:, None], idx]  # (B, win_frames, C)
-            return self.model(None, conv_feats=windows)[:, 1]
+            return self.score_windows(self.model, self._feats, slots, starts)
 
     def _score_esc(self, slots, starts) -> torch.Tensor:
-        """(B,) flagship logits of the windows' raw samples. ``slice``
-        gathers the B slot rows, then each window is a contiguous slice of
-        its doubled row (the doubling takes the ring's wrap); ``flat``
-        gathers per sample. Both give the same samples."""
         with torch.inference_mode():
-            flat = self._swave.view(self._swave.shape[0], self.ring_samples)
-            if self.esc_gather == "slice":
-                rows = flat[slots]  # (B, ring_samples)
-                dbl = torch.cat([rows, rows], dim=1)
-                waves = dbl.unfold(1, self.duration, self.stride)[
-                    torch.arange(len(slots), device=self.device), starts]
-            else:
-                sidx = (starts[:, None] * self.stride + self._dur_arange) \
-                    % self.ring_samples
-                waves = flat[slots[:, None], sidx]
-            return self._esc_model(self._decode(waves))[:, 1]
+            return self.score_esc_windows(self._esc_model, self._swave,
+                                          slots, starts)
 
     # ------------------------------------------------------------- lifecycle
 

@@ -20,12 +20,19 @@
   pretraining-only ``mask_emb``, ``quantizer.*``, ``project_q.*``,
   ``final_proj.*``. The result loads with ``strict=True``.
 - :func:`to_jax_variables` and :func:`to_jax_ssl_params`: the inverse of
-  :func:`from_jax_variables` (float models), the port's state dict -> the
-  JAX package's ``{'params', 'batch_stats'}`` tree, or the encoder's
-  ``params`` tree alone, as numpy float32 arrays: the layout
-  ``rtdsd_tpu/models/convert_fairseq.py::convert_reference_model`` and
-  ``convert_w2v_checkpoint`` produce (the transformer layers stacked on a
-  leading axis).
+  :func:`from_jax_variables`, the port's state dict -> the JAX package's
+  ``{'params', 'batch_stats'}`` tree, or the encoder's ``params`` tree
+  alone, as numpy float32 arrays (int8 ``vals`` of a quantized model):
+  the layout ``rtdsd_tpu/models/convert_fairseq.py::convert_reference_model``
+  and ``convert_w2v_checkpoint`` produce (the transformer layers stacked on
+  a leading axis).
+
+A JAX model built with ``remat_save_every`` = m >= 2 keeps its layers in
+the mixed layout of ``convert_fairseq.py::to_mixed_remat``: the first layer
+of each chunk of m under ``layers/layer_save`` (axis L/m), the other m - 1
+under ``layers/layers_r/layer`` (axes L/m, m - 1). The readers take either
+layout; the writers give the mixed one with ``remat_save_every=m``. The
+port's state dict keeps ``encoder.layers.{i}`` in both cases.
 """
 
 from __future__ import annotations
@@ -101,7 +108,7 @@ def _w2v(params: Mapping, P: str) -> StateDict:
     _lin(out, f"{P}post_extract_proj", params["post_extract_proj"])
     _conv1d(out, f"{P}encoder.pos_conv.0", params["pos_conv"]["conv"])
     _norm(out, f"{P}encoder.layer_norm", params["encoder_layer_norm"])
-    stacked = params["layers"]["layer"]
+    stacked = standard_layers(params["layers"])
     names = {"self_attn_layer_norm": "self_attn_layer_norm",
              "q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
              "v_proj": "self_attn.v_proj", "out_proj": "self_attn.out_proj",
@@ -112,6 +119,41 @@ def _w2v(params: Mapping, P: str) -> StateDict:
             fn = _norm if "norm" in jax_name else _lin
             fn(out, f"{P}encoder.layers.{i}.{torch_name}", sub)
     return out
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], Mapping):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def standard_layers(layers: Mapping) -> Mapping:
+    """The JAX encoder's ``layers`` subtree -> its ``layer`` stack (L, ...):
+    as it is in the standard layout, interleaved from the mixed one
+    (``convert_fairseq.py::from_mixed_remat``)."""
+    if "layer_save" not in layers:
+        return layers["layer"]
+
+    def join(save, rest):
+        save, rest = np.asarray(save), np.asarray(rest)
+        merged = np.concatenate([save[:, None], rest], axis=1)
+        return merged.reshape((-1,) + merged.shape[2:])
+
+    return _tree_map(join, layers["layer_save"], layers["layers_r"]["layer"])
+
+
+def mixed_layers(stacked: Mapping, m: int) -> dict:
+    """A ``layer`` stack (L, ...) -> the mixed layout's ``layers`` subtree
+    for ``remat_save_every`` = m (``convert_fairseq.py::to_mixed_remat``)."""
+    def split(leaf):
+        if leaf.shape[0] % m:
+            raise ValueError(f"stacked depth {leaf.shape[0]} not divisible "
+                             f"by m={m}")
+        return leaf.reshape((leaf.shape[0] // m, m) + leaf.shape[1:])
+
+    return {"layer_save": _tree_map(lambda a: split(a)[:, 0], stacked),
+            "layers_r": {"layer": _tree_map(lambda a: split(a)[:, 1:],
+                                            stacked)}}
 
 
 def _aasist(params: Mapping, stats: Mapping) -> StateDict:
@@ -255,7 +297,11 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def _lin_out(sd: Mapping, name: str) -> dict:
-    p = {"kernel": np.ascontiguousarray(_np(sd[f"{name}.weight"]).T)}
+    if f"{name}.vals" in sd:                    # int8 W8Linear / W8A8Linear
+        p = {"vals": sd[f"{name}.vals"].detach().cpu().numpy().copy(),
+             "scales": _np(sd[f"{name}.scales"])}
+    else:
+        p = {"kernel": np.ascontiguousarray(_np(sd[f"{name}.weight"]).T)}
     if f"{name}.bias" in sd:
         p["bias"] = _np(sd[f"{name}.bias"])
     return p
@@ -295,9 +341,11 @@ _LAYER_RE = re.compile(r"^encoder\.layers\.(\d+)\.")
 _CONV_RE = re.compile(r"^feature_extractor\.conv_layers\.(\d+)\.0\.weight$")
 
 
-def to_jax_ssl_params(sd: Mapping[str, torch.Tensor], prefix: str = "") -> dict:
+def to_jax_ssl_params(sd: Mapping[str, torch.Tensor], prefix: str = "",
+                      remat_save_every: int = 0) -> dict:
     """A ``Wav2Vec2Encoder``'s state dict (keys under ``prefix``) -> the JAX
-    encoder's ``params`` tree, the inverse of :func:`from_jax_ssl_params`."""
+    encoder's ``params`` tree, the inverse of :func:`from_jax_ssl_params`;
+    in the mixed layout for ``remat_save_every`` >= 2."""
     sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
     fe = {}
     n_conv = 1 + max(int(m.group(1)) for k in sd if (m := _CONV_RE.match(k)))
@@ -325,7 +373,8 @@ def to_jax_ssl_params(sd: Mapping[str, torch.Tensor], prefix: str = "") -> dict:
             "post_extract_proj": _lin_out(sd, "post_extract_proj"),
             "pos_conv": {"conv": _conv1d_out(sd, "encoder.pos_conv.0")},
             "encoder_layer_norm": _norm_out(sd, "encoder.layer_norm"),
-            "layers": {"layer": stacked}}
+            "layers": (mixed_layers(stacked, remat_save_every)
+                       if remat_save_every >= 2 else {"layer": stacked})}
 
 
 def _aasist_out(sd: Mapping) -> tuple:
@@ -402,15 +451,16 @@ def _conformer_out(sd: Mapping) -> tuple:
                     "conformer": conf_stats}
 
 
-def to_jax_variables(state_dict: Mapping[str, torch.Tensor], model_name: str
-                     ) -> dict:
-    """The port's state dict of a float zoo model -> the JAX package's
-    ``{'params', 'batch_stats'}`` (numpy float32 leaves), the inverse of
-    :func:`from_jax_variables` (``num_batches_tracked`` has no JAX
-    counterpart)."""
+def to_jax_variables(state_dict: Mapping[str, torch.Tensor], model_name: str,
+                     remat_save_every: int = 0) -> dict:
+    """The port's state dict of a zoo model -> the JAX package's
+    ``{'params', 'batch_stats'}`` (numpy float32 leaves, int8 ``vals`` of a
+    quantized model), the inverse of :func:`from_jax_variables`
+    (``num_batches_tracked`` has no JAX counterpart); the encoder's layers
+    in the mixed layout for ``remat_save_every`` >= 2."""
     head = _aasist_out if "AASIST" in model_name else _conformer_out
     params, stats = head(state_dict)
-    return {"params": {"ssl_model": to_jax_ssl_params(state_dict,
-                                                      "ssl_model.model."),
+    return {"params": {"ssl_model": to_jax_ssl_params(
+                           state_dict, "ssl_model.model.", remat_save_every),
                        "backend": params},
             "batch_stats": {"backend": stats}}

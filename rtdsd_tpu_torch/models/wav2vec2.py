@@ -25,9 +25,19 @@ backward).
 Train mode (``module.train()``) adds dropout at the JAX sites (the encoder
 input, attention probabilities, the attention output, the feed-forward
 hidden and output), drawn from the seed source passed as ``src``
-(:mod:`.dropout`). An encoder built with ``remat=True`` recomputes each
-transformer layer in the backward pass (``torch.utils.checkpoint``), as the
-JAX package's ``remat_policy: "full"`` does.
+(:mod:`.dropout`). An encoder built with ``remat=True`` recomputes its
+transformer layers in the backward pass (``torch.utils.checkpoint``) under
+the JAX package's ``remat_policy``: ``"full"`` keeps only each layer's
+input; ``"hidden"`` also keeps the two tensors the JAX layer tags with
+``checkpoint_name`` (``attn_out``, the ``out_proj`` output before dropout,
+and ``ffn_hidden``, the post-GELU feed-forward hidden), tagged here with
+:func:`rtdsd_tpu_torch.ops.attention.checkpoint_name`; ``"dots"`` keeps
+every matmul output and the attention operator's, as
+``jax.checkpoint_policies.dots_saveable``. Both are selective
+checkpointing (``create_selective_checkpoint_contexts``), which picks
+what to keep by operator. ``remat_save_every`` = m >= 2 runs the first
+layer of each chunk of m un-checkpointed and the other m - 1 under the
+policy. A policy changes only what is kept, never the arithmetic.
 
 With ``w8`` the six transformer matmuls are :class:`W8Linear` (int8
 weights) and with ``w8`` and ``a8`` :class:`W8A8Linear` (int8 weights and
@@ -43,11 +53,12 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from rtdsd_tpu_torch.models import dropout, taps
 from rtdsd_tpu_torch.ops import fastgelu
-from rtdsd_tpu_torch.ops.attention import mha_small_t
+from rtdsd_tpu_torch.ops.attention import checkpoint_name, mha_small_t
 
 LN_EPS = 1e-5
 _HALF = (torch.bfloat16, torch.float16)
@@ -57,9 +68,9 @@ _HALF = (torch.bfloat16, torch.float16)
 class Wav2Vec2Config:
     """Same fields and defaults as the JAX package's config, so one config
     file drives both. Fields that only shape the TPU program
-    (``scan_unroll``, ``conv_impl``) have nothing to do in the port; of the
-    remat fields only ``remat_policy: "full"`` with ``remat_save_every`` 0
-    or 1 is ported (ROADMAP Queue 1, item 7). ``conv_segments > 1``
+    (``scan_unroll``, ``conv_impl``) have nothing to do in the port.
+    ``remat_policy`` and ``remat_save_every`` act on an encoder built with
+    ``remat=True`` (see the module note). ``conv_segments > 1``
     runs the conv front-end over that many stride-aligned overlapping
     segments batched along B (layer_norm extractor only). As in JAX, ``a8``
     takes effect only together with ``w8``."""
@@ -342,6 +353,7 @@ class TransformerLayer(nn.Module):
         self.fc1 = dense(cfg, d, cfg.encoder_ffn_dim)
         self.fc2 = dense(cfg, cfg.encoder_ffn_dim, d)
         self.final_layer_norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.tag = False   # tag attn_out and ffn_hidden for remat "hidden"
 
     def attention(self, q, k, v, src: Optional[torch.Generator] = None
                   ) -> torch.Tensor:
@@ -378,32 +390,67 @@ class TransformerLayer(nn.Module):
         k = linear(h, at.k_proj, dt).view(shape)
         v = linear(h, at.v_proj, dt).view(shape)
         attn = self.attention(q, k, v, src).reshape(b, t, d)
-        x = x + self._drop(linear(attn, at.out_proj, dt), cfg.dropout, src)
+        x = x + self._drop(self._name(linear(attn, at.out_proj, dt),
+                                      "attn_out"), cfg.dropout, src)
         h = layer_norm(x, self.final_layer_norm, dt)
         h = fastgelu.gelu(linear(h, self.fc1, dt), fast=use_fast_gelu(cfg, dt))
-        h = self._drop(h, cfg.activation_dropout, src)
+        h = self._drop(self._name(h, "ffn_hidden"), cfg.activation_dropout,
+                       src)
         return x + self._drop(linear(h, self.fc2, dt), cfg.dropout, src)
 
     def _drop(self, x, p, src):
         return dropout.drop(x, p, src) if self.training else x
 
+    def _name(self, x, name):
+        return checkpoint_name(x, name) if self.tag and self.training else x
+
+
+# what the selective policies keep: the tagged tensors ("hidden"), or the
+# output of every matmul-class operator and of the attention operator
+# ("dots"), as jax.checkpoint_policies.dots_saveable
+_aten = torch.ops.aten
+_KEEP = {"hidden": (torch.ops.rtdsd.checkpoint_name.default,),
+         "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+                  _aten.baddbmm.default, _aten._int_mm.default,
+                  torch.ops.rtdsd.mha_small_t.default)}
+REMAT_POLICIES = ("full", *_KEEP)
+
+
+def remat_context(policy: str):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a remat policy
+    (``None`` for ``"full"``, the plain checkpoint)."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r} "
+                         f"(have: {', '.join(REMAT_POLICIES)})")
+    if policy == "full":
+        return None
+    keep = _KEEP[policy]
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return lambda: create_selective_checkpoint_contexts(policy_fn)
+
 
 class TransformerEncoder(nn.Module):
     """fairseq ``encoder``: ``pos_conv.0`` (grouped conv, weight norm folded
     into a plain weight), ``layers.{i}``, ``layer_norm``. With ``remat``
-    each layer is recomputed in the backward pass of a train forward."""
+    the layers are recomputed in the backward pass of a train forward under
+    ``cfg.remat_policy`` and ``cfg.remat_save_every`` (module note)."""
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype,
                  remat: bool = False):
         super().__init__()
-        if remat and (cfg.remat_policy != "full" or cfg.remat_save_every > 1):
-            if cfg.remat_policy not in ("full", "hidden", "dots"):
-                raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
-                                 "(have: full, hidden, dots)")
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} with remat_save_every "
-                f"{cfg.remat_save_every} is not yet ported (ROADMAP Queue 1, "
-                "item 7); use remat_policy 'full' and remat_save_every 0")
+        self.context_fn = None
+        self.save_every = 0
+        if remat:
+            self.context_fn = remat_context(cfg.remat_policy)
+            m = cfg.remat_save_every
+            if m >= 2 and cfg.encoder_layers % m:
+                raise ValueError(f"remat_save_every={m} must divide "
+                                 f"encoder_layers={cfg.encoder_layers}")
+            self.save_every = m if m >= 2 else 0
         self.cfg, self.dtype, self.remat = cfg, dtype, remat
         d = cfg.encoder_embed_dim
         self.pos_conv = nn.Sequential(nn.Conv1d(
@@ -411,6 +458,8 @@ class TransformerEncoder(nn.Module):
             groups=cfg.conv_pos_groups))
         self.layers = nn.ModuleList(TransformerLayer(cfg, dtype)
                                     for _ in range(cfg.encoder_layers))
+        for layer in self.layers:
+            layer.tag = remat and cfg.remat_policy == "hidden"
         self.layer_norm = nn.LayerNorm(d, eps=LN_EPS)
 
     def positional(self, x: torch.Tensor) -> torch.Tensor:
@@ -435,7 +484,8 @@ class TransformerEncoder(nn.Module):
         LayerNorm, as the JAX scan's ``y`` (recorded as the taps
         ``ssl_hidden:{i}`` too, outside the recomputed region). In training
         each layer's dropout seed is drawn from ``src`` here, outside the
-        recomputed region."""
+        recomputed region; with ``remat_save_every`` = m the first layer of
+        each chunk of m runs un-checkpointed."""
         x = x + self.positional(x)
         if not self.cfg.layer_norm_first:
             x = layer_norm(x, self.layer_norm, self.dtype)
@@ -444,9 +494,12 @@ class TransformerEncoder(nn.Module):
         for i, layer in enumerate(self.layers):
             if not self.training:
                 x = layer(x)
-            elif self.remat:
+            elif self.remat and not (self.save_every
+                                     and i % self.save_every == 0):
+                kw = {} if self.context_fn is None \
+                    else {"context_fn": self.context_fn}
                 x = checkpoint(layer, x, dropout.next_seed(src),
-                               use_reentrant=False)
+                               use_reentrant=False, **kw)
             else:
                 x = layer(x, dropout.next_seed(src))
             if return_hiddens:

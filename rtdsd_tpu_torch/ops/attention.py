@@ -14,11 +14,20 @@ the register-tiled one for T up to 512 / 384 / 256 / 128 at D = 16 / 32 /
 64 / 128, where its shared memory fits, and the one-warp-per-row one for
 longer T.
 
-When q, k or v requires grad (a train step), the call goes through an
-autograd function: its forward is the same kernel (or plain version), and
-its backward (:func:`mha_small_t_backward`) is plain PyTorch in float32 that
-recomputes the probabilities. The JAX package's kernel has no backward of
-its own either: its train step differentiates the XLA attention.
+The function is the custom operator ``torch.ops.rtdsd.mha_small_t``
+(``torch.library``), so ``torch.export`` records it as one node of a
+program and the selective checkpointing of a train step sees it as one
+operator. Its CUDA implementation is :func:`launch` (the ``ctypes`` launch
+of the kernel, which counts it), its CPU implementation the plain version,
+and its fake implementation gives the output's shape and dtype for tracing.
+Its backward (:func:`mha_small_t_backward`) is plain PyTorch in float32
+that recomputes the probabilities. The JAX package's kernel has no backward
+of its own either: its train step differentiates the XLA attention.
+
+:func:`checkpoint_name` is the operator ``torch.ops.rtdsd.checkpoint_name``,
+the counterpart of ``jax.ad_checkpoint.checkpoint_name``: an identity (a
+copy, since an operator's output may not alias its input) whose output a
+checkpointing policy can ask to keep by its name.
 """
 
 from __future__ import annotations
@@ -129,37 +138,22 @@ def mha_small_t_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-class _MhaSmallT(torch.autograd.Function):
-    """The kernel (or plain version) forward with the float32 backward."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        ctx.save_for_backward(q, k, v)
-        ctx.scale = scale
-        return _forward(q, k, v, scale)
-
-    @staticmethod
-    def backward(ctx, dout):
-        return (*mha_small_t_backward(*ctx.saved_tensors, dout, ctx.scale),
-                None)
-
-
 def mha_small_t(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale: Optional[float] = None) -> torch.Tensor:
     """Self-attention over (B, T, H, D) inputs with small T; default scale
-    ``D ** -0.5``. Launches the CUDA kernel for CUDA tensors. The output
-    carries a gradient function when q, k or v requires grad."""
+    ``D ** -0.5``. Launches the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors; differentiable through the float32 backward."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return _MhaSmallT.apply(q, k, v, scale)
-    return _forward(q, k, v, scale)
+    return torch.ops.rtdsd.mha_small_t(q, k, v, float(scale))
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             scale: float) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return mha_small_t_reference(q, k, v, scale)
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           scale: float) -> torch.Tensor:
+    """The kernel's ``ctypes`` launch on CUDA tensors, the operator's CUDA
+    implementation (callable without the dispatcher, as the port bound the
+    kernel before it was an operator): checks what the kernel takes,
+    raises on the rest."""
     b, t, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v shapes differ: {q.shape} {k.shape} {v.shape}")
@@ -194,4 +188,46 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+_op = torch.library.custom_op("rtdsd::mha_small_t", launch, mutates_args=(),
+                              device_types="cuda")
+
+
+@_op.register_kernel("cpu")
+def _plain(q, k, v, scale):
+    return mha_small_t_reference(q, k, v, scale)
+
+
+@_op.register_fake
+def _fake(q, k, v, scale):
+    return q.new_empty(q.shape)
+
+
+def _save(ctx, inputs, output):
+    q, k, v, scale = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.scale = scale
+
+
+def _backward(ctx, dout):
+    return (*mha_small_t_backward(*ctx.saved_tensors, dout, ctx.scale), None)
+
+
+_op.register_autograd(_backward, setup_context=_save)
 mha_small_t.launches = 0
+
+
+@torch.library.custom_op("rtdsd::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` under ``name`` for a checkpointing policy; its value is
+    ``x``'s."""
+    return x.clone()
+
+
+@checkpoint_name.register_fake
+def _fake_name(x, name):
+    return torch.empty_like(x)
+
+
+checkpoint_name.register_autograd(
+    lambda ctx, grad: (grad, None),
+    setup_context=lambda ctx, inputs, output: None)

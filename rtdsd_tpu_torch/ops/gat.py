@@ -4,9 +4,13 @@
 
 Both take (B, N, D) node features and return the attention-aggregated
 (B, N, D) nodes in float32, with the JAX functions' signatures and layouts:
-``att_proj_kernel`` is (D, Do), the bias (Do,), edge vectors (Do, 1). On
-CUDA tensors they launch ``csrc/gat.cu`` (design note at its top); on CPU
-tensors they run the plain PyTorch versions beside them.
+``att_proj_kernel`` is (D, Do), the bias (Do,), edge vectors (Do, 1). They
+are the custom operators ``torch.ops.rtdsd.fused_gat_aggregate`` and
+``torch.ops.rtdsd.fused_htrg_gat_aggregate`` (``torch.library``, so
+``torch.export`` records each as one node): on CUDA tensors they launch
+``csrc/gat.cu`` (design note at its top) through :func:`launch_gat` and
+:func:`launch_htrg`, on CPU tensors they run the plain PyTorch versions
+beside them. They have no backward: the models call them in eval only.
 
 Shape rule (:func:`tiled`): the register-tiled body takes Do in {8, 16, ...,
 256} where its shared memory fits, reading ``x`` in float32, bfloat16 or
@@ -154,14 +158,8 @@ def fused_gat_aggregate(x: torch.Tensor, att_proj_kernel: torch.Tensor,
                         att_proj_bias: torch.Tensor, att_weight: torch.Tensor,
                         temperature: float = 1.0) -> torch.Tensor:
     """(B, N, D) nodes -> (B, N, D) float32 attention-aggregated nodes."""
-    if x.device.type == "cpu":
-        return fused_gat_aggregate_reference(x, att_proj_kernel, att_proj_bias,
-                                             att_weight, temperature)
-    _check(x, att_proj_kernel, att_proj_bias, att_weight)
-    out = _launch("gat_aggregate_f32", x, att_proj_kernel,
-                  (att_proj_bias, att_weight), x.shape[1], temperature)
-    fused_gat_aggregate.launches += 1
-    return out
+    return torch.ops.rtdsd.fused_gat_aggregate(
+        x, att_proj_kernel, att_proj_bias, att_weight, float(temperature))
 
 
 def fused_htrg_gat_aggregate(x: torch.Tensor, att_proj_kernel: torch.Tensor,
@@ -170,15 +168,52 @@ def fused_htrg_gat_aggregate(x: torch.Tensor, att_proj_kernel: torch.Tensor,
                              temperature: float = 1.0) -> torch.Tensor:
     """Typed-edge aggregation: x is the concat of n1 type-1 and N - n1
     type-2 nodes; the edge vector is w11, w22 or w12 by the pair's types."""
-    if x.device.type == "cpu":
-        return fused_htrg_gat_aggregate_reference(
-            x, att_proj_kernel, att_proj_bias, w11, w22, w12, n1, temperature)
+    return torch.ops.rtdsd.fused_htrg_gat_aggregate(
+        x, att_proj_kernel, att_proj_bias, w11, w22, w12, int(n1),
+        float(temperature))
+
+
+def launch_gat(x: torch.Tensor, att_proj_kernel: torch.Tensor,
+               att_proj_bias: torch.Tensor, att_weight: torch.Tensor,
+               temperature: float) -> torch.Tensor:
+    """The ``ctypes`` launch of :func:`fused_gat_aggregate` on CUDA tensors,
+    the operator's CUDA implementation (callable without the dispatcher)."""
+    _check(x, att_proj_kernel, att_proj_bias, att_weight)
+    out = _launch("gat_aggregate_f32", x, att_proj_kernel,
+                  (att_proj_bias, att_weight), x.shape[1], temperature)
+    fused_gat_aggregate.launches += 1
+    return out
+
+
+def launch_htrg(x: torch.Tensor, att_proj_kernel: torch.Tensor,
+                att_proj_bias: torch.Tensor, w11: torch.Tensor,
+                w22: torch.Tensor, w12: torch.Tensor, n1: int,
+                temperature: float) -> torch.Tensor:
+    """The ``ctypes`` launch of :func:`fused_htrg_gat_aggregate` on CUDA
+    tensors, the operator's CUDA implementation."""
     _check(x, att_proj_kernel, att_proj_bias, w11, w22, w12)
     out = _launch("htrg_gat_aggregate_f32", x, att_proj_kernel,
                   (att_proj_bias, w11, w22, w12), int(n1), temperature)
     fused_htrg_gat_aggregate.launches += 1
     return out
 
+
+def _fake(x, *args):
+    return x.new_empty(x.shape, dtype=torch.float32)
+
+
+def _register(name: str, launcher, plain) -> None:
+    """``torch.ops.rtdsd.<name>``: the CUDA launch, the plain version on
+    the CPU, output shapes for tracing."""
+    op = torch.library.custom_op(f"rtdsd::{name}", launcher, mutates_args=(),
+                                 device_types="cuda")
+    op.register_kernel("cpu")(plain)
+    op.register_fake(_fake)
+
+
+_register("fused_gat_aggregate", launch_gat, fused_gat_aggregate_reference)
+_register("fused_htrg_gat_aggregate", launch_htrg,
+          fused_htrg_gat_aggregate_reference)
 
 fused_gat_aggregate.launches = 0
 fused_htrg_gat_aggregate.launches = 0

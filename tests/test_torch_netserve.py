@@ -11,8 +11,8 @@ with scores within tests/test_serving.py's tolerance, and each package's
 client must drive the other's daemon. The port's own behaviour follows
 tests/test_netserve.py test by test, with direct scoring of the
 int16-quantized windows (``engine/steps.py::make_score_step``) as the
-oracle. ``test_daemon_from_artifact_matches_ckpt_daemon`` has no port yet:
-the serving export is ROADMAP Queue 1 item 10.
+oracle. ``test_daemon_from_artifact_matches_ckpt_daemon`` serves a
+``cli/export.py`` serving bundle beside the checkpoint-backed engine.
 
 Each daemon runs on a private asyncio loop in a background thread and the
 blocking clients talk to it over a Unix socket, as a producer would. A JAX
@@ -713,3 +713,32 @@ def test_daemon_swap_model_between_pushes(models, serve):
         served.call(served.daemon.swap_model(bad))
     assert served.daemon.reloads == 1
     cli.close_socket()
+
+
+def test_daemon_from_artifact_matches_ckpt_daemon(models, serve, tmp_path):
+    """A daemon on an engine rebuilt from a ``cli.export --serving``
+    bundle (no model code) sends the SCORE events of a daemon on the
+    checkpoint-backed engine for the same pushed samples: the same starts
+    and flags, scores within 1e-5 / 1e-6 (tests/test_netserve.py)."""
+    from rtdsd_tpu_torch.cli.export import (_state, export_serving,
+                                            load_serving, save_serving)
+
+    module = models["primary"][3]
+    ext, sco, esc, meta = export_serving(
+        module, module.w2v_cfg, duration=DUR, hop=HOP, max_streams=2,
+        transport_dtype="int16", platforms=("cpu",))
+    prefix = str(tmp_path / "bundle")
+    save_serving(ext, sco, esc, prefix, meta, _state(module), NAME)
+    art_eng, _ = load_serving(prefix, device="cpu")
+    ckpt_eng = _port_engine(models, max_streams=2)
+    wave = _wave(9, 3 * HOP + DUR)
+    results = []
+    for eng in (art_eng, ckpt_eng):
+        cli = serve(ServeDaemon(eng, 16000, tick_sec=0.02)).client()
+        results.append(_stream(cli, wave, "wire", chunks=(700, 701)))
+        cli.close_socket()
+    art, ckpt = results
+    assert len(art) == len(ckpt) == 4
+    assert [(s, f) for s, _, f in art] == [(s, f) for s, _, f in ckpt]
+    np.testing.assert_allclose([v for _, v, _ in art],
+                               [v for _, v, _ in ckpt], rtol=1e-5, atol=1e-6)

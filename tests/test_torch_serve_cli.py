@@ -170,7 +170,6 @@ def test_serve_cli_device_ms(track, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--artifact", "bundle"], "Queue 1 item 10"),
     (["--shard"], "Queue 1 item 8"),
 ])
 def test_unported_flags_exit_naming_roadmap_item(track, flag, item):
