@@ -28,6 +28,7 @@ from rtdsd_tpu_torch.models.zoo import init_weights
 from rtdsd_tpu_torch.parallel import distributed
 from rtdsd_tpu_torch.parallel.mesh import ProcessMesh, make_mesh
 from rtdsd_tpu_torch.utils import flax_msgpack
+from rtdsd_tpu_torch.utils.spans import span
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -219,13 +220,17 @@ def score_dataset(dataset, spec: ModelSpec, batch_size: int,
                         process_index=distributed.process_index(),
                         process_count=distributed.process_count())
     names, outs = [], []
-    for b in loader:
+    batches = iter(loader)
+    for _ in range(len(loader)):
+        with span("score.loader_wait"):
+            b = next(batches)
         waves = torch.from_numpy(b.waves).to(device, non_blocking=True)
         outs.append(step(waves)[:b.valid])
         names.extend(b.utt_ids[:b.valid])
     if not outs:
         return names, []
-    return names, torch.cat(outs).float().cpu().tolist()
+    with span("score.readback"):
+        return names, torch.cat(outs).float().cpu().tolist()
 
 
 def _write_score_file(save_path: str, names, scores) -> None:

@@ -61,6 +61,7 @@ from rtdsd_tpu_torch.device import resolve_device
 from rtdsd_tpu_torch.models.wav2vec2 import (Wav2Vec2Config,
                                              conv_segment_geometry,
                                              use_fast_gelu)
+from rtdsd_tpu_torch.utils.spans import span, spanned
 
 __all__ = ["MultiStreamScorer", "WindowScore", "mulaw_encode", "mulaw_decode",
            "dispatch_detail_keys", "probe_hbm_bytes", "hbm_limit_file_path",
@@ -1292,6 +1293,46 @@ class MultiStreamScorer:
             nb, key = rb, rname
         return nb, key
 
+    def _extend_args(self, segs):
+        """(``dispatch_counts`` key, dispatch, its arguments on the device)
+        of the extend of the due segments ``segs``: the live segments'
+        samples, slots and ring positions, and the zero segments' slots
+        for the conv(0) rows; zero segments alone take ``_extend_const``
+        (a folded dispatch would pay the conv on an all-padding batch)."""
+        if self._fastpath:
+            live = [s for s in segs if s[2].any()]
+            zero_segs = [s for s in segs if not s[2].any()]
+        else:
+            live, zero_segs = segs, []
+        zslots = np.full((self.extend_batch,), self._scratch, np.int64)
+        zpos = np.zeros((self.extend_batch,), np.int64)
+        if zero_segs:
+            self._ensure_const_rows()
+            self.zero_segments += len(zero_segs)
+            for i, (slot, seg_idx, _s) in enumerate(zero_segs):
+                zslots[i] = slot
+                zpos[i] = (seg_idx * self.seg_frames) % self.ring_frames
+        if not live:
+            return "extend_const", self._extend_const, (
+                self._const_rows, self._put(zslots), self._put(zpos))
+        self._ap_obs("extend", len(live))
+        nb, key = self.extend_batch, "extend"
+        if self._fastpath and self._subshape_ok:
+            nb, key = self._rung(len(live), nb, key, self._extend_rungs)
+        seg_mat = np.zeros((nb, self.seg_samples), self._tdtype)
+        slots = np.full((nb,), self._scratch, np.int64)
+        pos = np.zeros((nb,), np.int64)
+        for i, (slot, seg_idx, samples) in enumerate(live):
+            seg_mat[i] = samples
+            slots[i] = slot
+            pos[i] = (seg_idx * self.seg_frames) % self.ring_frames
+        return key, self._extend, (
+            (self._const_rows if self._const_rows is not None
+             else self._const_zero),
+            self._put(seg_mat), self._put(slots), self._put(pos),
+            self._put(zslots), self._put(zpos))
+
+    @spanned("serve.poll")
     def poll(self) -> List[WindowScore]:
         """Run at most one ``extend`` (the zero segments' rows folded in)
         and one ``score`` dispatch, plus the escalation chunks; returns the
@@ -1302,52 +1343,23 @@ class MultiStreamScorer:
         self._ap_polls += 1
         self._maybe_auto_provision()
         self._rr += 1
-        segs = self._due_segments(limit=self.extend_batch)
+        with span("serve.due"):
+            segs = self._due_segments(limit=self.extend_batch)
         if segs:
             self._last_poll_work = True
-            if self._fastpath:
-                live = [s for s in segs if s[2].any()]
-                zero_segs = [s for s in segs if not s[2].any()]
-            else:
-                live, zero_segs = segs, []
-            zslots = np.full((self.extend_batch,), self._scratch, np.int64)
-            zpos = np.zeros((self.extend_batch,), np.int64)
-            if zero_segs:
-                self._ensure_const_rows()
-                self.zero_segments += len(zero_segs)
-                for i, (slot, seg_idx, _s) in enumerate(zero_segs):
-                    zslots[i] = slot
-                    zpos[i] = (seg_idx * self.seg_frames) % self.ring_frames
-            if live:
-                self._ap_obs("extend", len(live))
-                nb, key = self.extend_batch, "extend"
-                if self._fastpath and self._subshape_ok:
-                    nb, key = self._rung(len(live), nb, key,
-                                         self._extend_rungs)
-                seg_mat = np.zeros((nb, self.seg_samples), self._tdtype)
-                slots = np.full((nb,), self._scratch, np.int64)
-                pos = np.zeros((nb,), np.int64)
-                for i, (slot, seg_idx, samples) in enumerate(live):
-                    seg_mat[i] = samples
-                    slots[i] = slot
-                    pos[i] = (seg_idx * self.seg_frames) % self.ring_frames
-                self._extend(
-                    (self._const_rows if self._const_rows is not None
-                     else self._const_zero),
-                    self._put(seg_mat), self._put(slots), self._put(pos),
-                    self._put(zslots), self._put(zpos))
-                self.dispatch_counts[key] += 1
-            elif zero_segs:
-                self._extend_const(self._const_rows, self._put(zslots),
-                                   self._put(zpos))
-                self.dispatch_counts["extend_const"] += 1
+            with span("serve.pack"):
+                key, extend, args = self._extend_args(segs)
+            with span("serve.extend"):
+                extend(*args)
+            self.dispatch_counts[key] += 1
             self._consume(segs)
 
         gated = []
-        if self.gate_msq is None:
-            wins = self._due_windows(limit=self.score_batch)
-        else:
-            wins, gated = self._due_windows_gated(self.score_batch)
+        with span("serve.due"):
+            if self.gate_msq is None:
+                wins = self._due_windows(limit=self.score_batch)
+            else:
+                wins, gated = self._due_windows_gated(self.score_batch)
             if gated:
                 self._last_poll_work = True
                 self.gated_windows += len(gated)
@@ -1365,13 +1377,17 @@ class MultiStreamScorer:
             if self._subshape_ok:
                 nbs, skey = self._rung(len(wins), nbs, skey,
                                        self._score_rungs)
-            slots = np.full((nbs,), self._scratch, np.int64)
-            starts = np.zeros((nbs,), np.int64)
-            for i, (slot, w, start) in enumerate(wins):
-                slots[i] = slot
-                starts[i] = start % self.ring_frames
-            scores = self._score(self._put(slots), self._put(starts)
-                                 ).float().cpu().numpy()
+            with span("serve.pack"):
+                slots = np.full((nbs,), self._scratch, np.int64)
+                starts = np.zeros((nbs,), np.int64)
+                for i, (slot, w, start) in enumerate(wins):
+                    slots[i] = slot
+                    starts[i] = start % self.ring_frames
+                args = self._put(slots), self._put(starts)
+            with span("serve.score"):
+                scores = self._score(*args)
+            with span("serve.readback"):
+                scores = scores.float().cpu().numpy()
             self.dispatch_counts[skey] += 1
             escalated = np.zeros(len(wins), bool)
             if self._escalate:

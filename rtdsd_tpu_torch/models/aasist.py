@@ -41,6 +41,7 @@ from rtdsd_tpu_torch.models.taps import record
 from rtdsd_tpu_torch.models.wav2vec2 import linear
 from rtdsd_tpu_torch.ops.gat import fused_gat_aggregate, fused_htrg_gat_aggregate
 from rtdsd_tpu_torch.parallel.distributed import all_reduce_sum
+from rtdsd_tpu_torch.utils.spans import spanned
 
 BN_MOMENTUM = 0.9       # flax's: running = 0.9 * running + 0.1 * batch
 
@@ -292,6 +293,7 @@ class AASISTBackend(nn.Module):
         self.pool_hT2 = GraphPool(pool_ratios[2], g1, dtype)
         self.out_layer = nn.Linear(5 * g1, num_classes)
 
+    @spanned("model.backend")
     def forward(self, feats: torch.Tensor, src=None) -> torch.Tensor:
         """``src``: the dropout seed source of a train forward. The JAX
         modules' outputs are recorded as distillation taps

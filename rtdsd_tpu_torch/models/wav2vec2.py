@@ -60,6 +60,7 @@ from rtdsd_tpu_torch.models import dropout, taps
 from rtdsd_tpu_torch.ops import fastgelu
 from rtdsd_tpu_torch.ops.attention import checkpoint_name, mha_small_t
 from rtdsd_tpu_torch.parallel.tensor import tp_linear
+from rtdsd_tpu_torch.utils.spans import span, spanned
 
 LN_EPS = 1e-5
 _HALF = (torch.bfloat16, torch.float16)
@@ -318,6 +319,7 @@ class ConvFeatureExtractor(nn.Module):
             cin = dim
         self.conv_layers = nn.ModuleList(blocks)
 
+    @spanned("model.frontend")
     def forward(self, wave: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         fast = use_fast_gelu(self.cfg, dt)
@@ -398,11 +400,13 @@ class TransformerLayer(nn.Module):
         attn = self.attention(q, k, v, src).reshape(b, t, -1)
         x = x + self._drop(self._name(linear(attn, at.out_proj, dt),
                                       "attn_out"), cfg.dropout, src)
-        h = layer_norm(x, self.final_layer_norm, dt)
-        h = fastgelu.gelu(linear(h, self.fc1, dt), fast=use_fast_gelu(cfg, dt))
-        h = self._drop(self._name(h, "ffn_hidden"), cfg.activation_dropout,
-                       src)
-        return x + self._drop(linear(h, self.fc2, dt), cfg.dropout, src)
+        with span("model.ffn"):
+            h = layer_norm(x, self.final_layer_norm, dt)
+            h = fastgelu.gelu(linear(h, self.fc1, dt),
+                              fast=use_fast_gelu(cfg, dt))
+            h = self._drop(self._name(h, "ffn_hidden"),
+                           cfg.activation_dropout, src)
+            return x + self._drop(linear(h, self.fc2, dt), cfg.dropout, src)
 
     def _drop(self, x, p, src):
         return dropout.drop(x, p, src) if self.training else x
@@ -567,8 +571,9 @@ class Wav2Vec2Encoder(nn.Module):
             feats = self.segmented_features(wave)
         else:
             feats = self.feature_extractor(wave)
-        x = layer_norm(feats, self.layer_norm, self.dtype)
-        x = linear(x, self.post_extract_proj, self.dtype)
-        if self.training:
-            x = dropout.drop(x, self.cfg.dropout, src)
-        return self.encoder(x, return_hiddens=return_hiddens, src=src)
+        with span("model.encoder"):
+            x = layer_norm(feats, self.layer_norm, self.dtype)
+            x = linear(x, self.post_extract_proj, self.dtype)
+            if self.training:
+                x = dropout.drop(x, self.cfg.dropout, src)
+            return self.encoder(x, return_hiddens=return_hiddens, src=src)
