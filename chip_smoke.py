@@ -34,13 +34,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    front-end layer geometries, in bf16 on each body in turns (the
    tensor-core body and the FFMA body) beside the model's unfused layer,
    with ptxas's registers and spills of the quantize and conv kernels;
+   ``gelu_fast`` (the rational-erf GELU) bit for bit against the plain
+   chain at the FFN hidden of a scoring batch of 40 and of a 576-stream
+   tick and at the front-end's transposed (40, 512, 12799), timed beside
+   its bytes bound, the plain chain and ``F.gelu`` (the exact erf:
+   information only), with ptxas's registers and spills;
 4. the eval loader on the main path's track: the native (C++, built with
    g++ at first use, the CLI's) and the Python decode paths of
    ``EvalLoader`` give identical batches of
    first-N crops at 16 kHz; host decode ms per batch of 16 four-second
    clips for each;
    then the paths, each with every launch counter set to 0 just before it
-   and read just after:
+   and read just after (``gelu_fast`` included: one launch a front-end conv
+   layer, one for the positional conv and one a transformer layer in every
+   bf16 forward, none in float32):
    a. the main path: a full-width XLSR_AASIST (24 layers, width 1024,
       random weights from seed 0) saved as a reference-named ``.pt``, 32
       synthetic four-second clips scored in bf16 through
@@ -325,6 +332,14 @@ FRONTEND_F32_ATOL = 5e-4    # rational vs exact erf over 7 layers
 QUANT_SHAPES = ((1024, 1024), (1024, 4096), (4096, 1024))   # (in, out)
 QUANT_Z = 6.0               # |mean rounding error| in standard errors
 STEADY_REPEATS = 5          # rounds of the int8-vs-bf16 steady timings
+FRONTEND_GELU = 7           # gelu_fast launches of a (b)f16 conv front-end
+# gelu_fast launches of a bf16 train step of the 24-layer model under remat:
+# the front-end and the positional conv once, each layer in the forward and
+# again in its recompute (the backward recomputes the plain chain: no
+# launch); of a KD step: the 24-layer teacher's forward and the 6-layer
+# student's step
+TRAIN_STEP_GELU = FRONTEND_GELU + 1 + 2 * 24
+KD_STEP_GELU = (FRONTEND_GELU + 1 + 24) + (FRONTEND_GELU + 1 + 2 * 6)
 # (Cin, Cout, k, s, T in) of front-end layers 1-6 on 64000 samples
 CONV_LAYERS = tuple((512, 512, k, 2, t) for k, t in
                     ((3, 12799), (3, 6399), (3, 3199), (3, 1599), (2, 799),
@@ -802,6 +817,53 @@ def check_ln_gelu(dev) -> dict:
     return rec["bf16"]
 
 
+# (name, shape, transposed): the FFN hidden of a scoring batch of 40 at 4 s
+# and of a 576-stream serving tick at 1 s (contiguous), the front-end's
+# first layer at batch 40 as its LayerNorm leaves it (the transpose of a
+# contiguous (40, 12799, 512))
+GELU_SHAPES = (("ffn, score batch", (40 * 199, 4096), False),
+               ("ffn, serve tick", (576 * 49, 4096), False),
+               ("front-end layer 0", (40, 12799, 512), True))
+
+
+def check_gelu(dev) -> dict:
+    """gelu_fast in bf16 at GELU_SHAPES: bit for bit and in the plain
+    chain's layout against it, then the kernel (ten calls a CUDA graph),
+    the plain chain and ``F.gelu`` (the exact erf, another function:
+    information only) beside the bytes bound. The reported record is the
+    scoring batch's FFN hidden."""
+    import torch.nn.functional as F
+
+    from rtdsd_tpu_torch.ops.fastgelu import gelu_fast, gelu_fast_reference
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    recs = []
+    for name, shape, transposed in GELU_SHAPES:
+        x = (torch.randn(shape, generator=g, device=dev) * 3).bfloat16()
+        if transposed:
+            x = x.transpose(1, 2)
+        got, want = gelu_fast(x), gelu_fast_reference(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or got.stride() != want.stride():
+            raise RuntimeError(f"gelu_fast {name} {tuple(x.shape)} differs "
+                               f"from the plain chain")
+        del got, want
+        ms = device_ms(lambda: gelu_fast(x), calls=10)
+        plain = device_ms(lambda: gelu_fast_reference(x))
+        lib = device_ms(lambda: F.gelu(x), calls=10)
+        bnd, by = bound_ms(2 * x.numel() * x.element_size(), 0, "bf16")
+        log(f"gelu_fast bf16 {name} {tuple(x.shape)} strides {x.stride()}: "
+            f"bit for bit; kernel {ms:.4f} ms ({100 * bnd / ms:.1f}% of the "
+            f"bound), plain {plain:.4f} ms, F.gelu {lib:.4f} ms (exact erf, "
+            f"information), bound {bnd:.4f} ms ({by})")
+        recs.append(dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                         bound_ms=bnd, bound_by=by, library_ms=lib,
+                         shape=f"x {tuple(x.shape)} bf16 ({name})"))
+        del x
+    torch.cuda.empty_cache()
+    return recs[0]
+
+
 def unfused_layer(x, w, bias, gamma, beta, s: int):
     """One front-end layer as ConvFeatureExtractor runs it in bf16, on its
     (B, Cin, T) activations: F.conv1d with the bias, LayerNorm in float32,
@@ -982,11 +1044,12 @@ def write_config(root: str, dtype: str, model: str = "XLSR_AASIST",
 
 
 def counters():
-    from rtdsd_tpu_torch.ops import attention, convstack, gat, quant
+    from rtdsd_tpu_torch.ops import attention, convstack, fastgelu, gat, quant
 
     return (attention.mha_small_t, gat.fused_gat_aggregate,
             gat.fused_htrg_gat_aggregate, quant.quantize_int8,
-            convstack.ln_gelu, convstack.conv_ln_gelu_grouped)
+            convstack.ln_gelu, convstack.conv_ln_gelu_grouped,
+            fastgelu.gelu_fast)
 
 
 def reset_counters() -> None:
@@ -1115,11 +1178,17 @@ def run_cli(cfg: str, ckpt: str, tag: str, extra=()) -> tuple:
                       for l in lines}, wall
 
 
-def launches_want(attention=0, gat=0, quantize=0) -> dict:
+def launches_want(attention=0, gat=0, quantize=0, gelu=0) -> dict:
     """Expected counters; ``gat`` counts AASIST forwards (2 + 4 launches)."""
     return {"mha_small_t": attention, "fused_gat_aggregate": 2 * gat,
             "fused_htrg_gat_aggregate": 4 * gat, "quantize_int8": quantize,
-            "ln_gelu": 0, "conv_ln_gelu_grouped": 0}
+            "ln_gelu": 0, "conv_ln_gelu_grouped": 0, "gelu_fast": gelu}
+
+
+def w2v_gelu(layers: int) -> int:
+    """gelu_fast launches of a bf16 forward from the wave: the front-end's
+    conv layers, the positional conv and each transformer layer."""
+    return FRONTEND_GELU + 1 + layers
 
 
 def main_path(ckpt: str, mode: str = "") -> dict:
@@ -1129,7 +1198,8 @@ def main_path(ckpt: str, mode: str = "") -> dict:
     launches, scores, wall = run_cli(write_config(WORK, "bfloat16"), ckpt,
                                      tag, [f"--{mode}"] if mode else [])
     batches = -(-N_CLIPS // B)
-    want = launches_want(24 * batches, batches, 144 if mode else 0)
+    want = launches_want(24 * batches, batches, 144 if mode else 0,
+                         w2v_gelu(24) * batches)
     log(f"{tag} path: {len(scores)} finite scores; launches {launches} "
         f"(want {want}); CLI wall {wall:.2f} s incl. model build, load"
         f"{' and quantization' if mode else ''}")
@@ -1157,7 +1227,8 @@ def conformer_path(ckpt: str) -> dict:
         tag = "conformer_" + (mode or "bf16")
         launches, scores[tag], wall = run_cli(cfg, ckpt, tag,
                                               [f"--{mode}"] if mode else [])
-        want = launches_want(24 * batches, quantize=144 if mode else 0)
+        want = launches_want(24 * batches, quantize=144 if mode else 0,
+                             gelu=w2v_gelu(24) * batches)
         log(f"{tag} path: {N_CLIPS} finite scores; launches {launches} (want "
             f"{want}); CLI wall {wall:.2f} s incl. model build and load"
             f"{' and quantization' if mode else ''}")
@@ -1177,7 +1248,7 @@ def cascade_path(ckpt: str, screener_ckpt: str, conformer: dict) -> None:
                          name="screener")
     batches = -(-N_CLIPS // B)
     launches, screen, wall = run_cli(cfg_s, screener_ckpt, "screener")
-    want = launches_want(6 * batches, batches)
+    want = launches_want(6 * batches, batches, gelu=w2v_gelu(6) * batches)
     log(f"screener (My_XLSR_AASIST, layers {SCREENER_KWARGS['custom_order']})"
         f": launches {launches} (want {want}); CLI wall {wall:.2f} s")
     if launches != want:
@@ -1193,7 +1264,9 @@ def cascade_path(ckpt: str, screener_ckpt: str, conformer: dict) -> None:
         ["--cascade_ckpt", screener_ckpt, "--cascade_config", cfg_s,
          "--cascade_band", repr(band), "--cascade_center", "0"])
     esc = sorted(u for u, v in screen.items() if abs(v) <= band)
-    want = launches_want(6 * batches + 24 * -(-len(esc) // B), batches)
+    want = launches_want(6 * batches + 24 * -(-len(esc) // B), batches,
+                         gelu=w2v_gelu(6) * batches
+                         + w2v_gelu(24) * -(-len(esc) // B))
     kept = sum(cascade[u] == screen[u] for u in screen if u not in esc)
     err = max(abs(cascade[u] - conformer[u]) for u in esc)
     scale = max(1.0, max(abs(conformer[u]) for u in esc))
@@ -1268,16 +1341,18 @@ def write_stream_audio(root: str) -> dict:
 
 def stream_plan(lengths: dict, incremental: bool) -> tuple:
     """The CLI's windows and dispatches, derived here from its rules ->
-    ({path: window starts}, score batches of the run, warm-ups included):
-    one warm-up window first; the incremental scorer snaps starts down to
-    the 320-sample grid, drops duplicates and warms each new segment
-    bucket (frames of max(T, window) in 256-frame segments, the count
-    rounded up to a multiple of 4) with a wave of the file's length."""
+    ({path: window starts}, score batches of the run, warm-ups included,
+    the incremental scorer's conv front-end calls): one warm-up window
+    first; the incremental scorer snaps starts down to the 320-sample
+    grid, drops duplicates and warms each new segment bucket (frames of
+    max(T, window) in 256-frame segments, the count rounded up to a
+    multiple of 4) with a wave of the file's length, and runs the front-end
+    once a ``window_scores`` call."""
     from rtdsd_tpu_torch.engine.streaming import frame_starts
     from rtdsd_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 
     cfg = Wav2Vec2Config()
-    starts, batches, buckets = {}, 1, set()
+    starts, batches, buckets, frontends = {}, 1, set(), 1
     for path, t in lengths.items():
         s = frame_starts(t, STREAM_WINDOW, STREAM_HOP)
         if incremental:
@@ -1287,9 +1362,11 @@ def stream_plan(lengths: dict, incremental: bool) -> tuple:
             if bucket not in buckets:
                 buckets.add(bucket)
                 batches += -(-len(s) // STREAM_BATCH)
+                frontends += 1
         starts[path] = s
         batches += -(-len(s) // STREAM_BATCH)
-    return starts, batches
+        frontends += 1
+    return starts, batches, frontends
 
 
 def run_stream(cfg: str, ckpt: str, lengths: dict, tag: str, extra=()) -> tuple:
@@ -1302,7 +1379,7 @@ def run_stream(cfg: str, ckpt: str, lengths: dict, tag: str, extra=()) -> tuple:
 
     out = os.path.join(WORK, "stream", f"{tag}.txt")
     paths = list(lengths)
-    want_starts, _ = stream_plan(lengths, "--incremental" in extra)
+    want_starts, _, _ = stream_plan(lengths, "--incremental" in extra)
     buf = io.StringIO()
     reset_counters()
     t0 = time.perf_counter()
@@ -1350,7 +1427,8 @@ def stream_path(ckpt: str, conformer_ckpt: str) -> dict:
     ``--incremental --w8a8``, and the Conformer of 4d ``--incremental``.
     Launches exactly (score batches, warm-ups included) x (24, 2, 4), 144
     ``quantize_int8`` with ``--w8a8``, no GAT launch for the Conformer, no
-    convstack launch; naive and incremental bf16 scores on windows that
+    convstack launch, ``gelu_fast`` 32 a naive batch and 25 an incremental
+    one plus 7 a front-end call; naive and incremental bf16 scores on windows that
     start at the same sample within the CLI-versus-forward tolerance.
     -> launches summed over the four runs."""
     lengths = write_stream_audio(os.path.join(WORK, "stream"))
@@ -1364,10 +1442,15 @@ def stream_path(ckpt: str, conformer_ckpt: str) -> dict:
             ("incremental_w8a8", cfg, ckpt, ["--incremental", "--w8a8"], True),
             ("conformer_incremental", cfg_c, conformer_ckpt,
              ["--incremental"], False)):
-        starts, batches = stream_plan(lengths, "--incremental" in extra)
+        incremental = "--incremental" in extra
+        starts, batches, frontends = stream_plan(lengths, incremental)
         launches, scores[tag], wall = run_stream(c, pt, lengths, tag, extra)
+        # incremental: the front-end once a window_scores call, the
+        # positional conv and the layers once a score batch
+        gelu = (FRONTEND_GELU * frontends + (1 + 24) * batches
+                if incremental else w2v_gelu(24) * batches)
         want = launches_want(24 * batches, batches if gat else 0,
-                             144 if "--w8a8" in extra else 0)
+                             144 if "--w8a8" in extra else 0, gelu)
         log(f"stream {tag}: {sum(map(len, starts.values()))} windows "
             f"({', '.join(str(len(s)) for s in starts.values())}), {batches} "
             f"score batches of {STREAM_BATCH} with the warm-ups; launches "
@@ -1377,7 +1460,7 @@ def stream_path(ckpt: str, conformer_ckpt: str) -> dict:
             raise RuntimeError(f"kernel launches {launches} != {want}")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
-    naive_starts, _ = stream_plan(lengths, False)
+    naive_starts, _, _ = stream_plan(lengths, False)
     on_grid = sum(s % 320 == 0 for v in naive_starts.values() for s in v)
     worst, shared = 0.0, 0
     for path, naive in scores["naive"].items():
@@ -1397,10 +1480,11 @@ def stream_path(ckpt: str, conformer_ckpt: str) -> dict:
 def kernels_held_to_plain(worst: dict):
     """Every kernel call the model makes also runs the kernel's plain
     version on the same inputs and holds the output to it: attention at
-    ATTN_TOL of its dtype (and ATTN_REL_NORM in bf16), GAT at GAT_TOL.
-    ``worst`` collects {name: [calls, max |d|, shapes seen]}."""
+    ATTN_TOL of its dtype (and ATTN_REL_NORM in bf16), GAT at GAT_TOL,
+    ``gelu_fast`` bit for bit. ``worst`` collects {name: [calls, max |d|,
+    shapes seen]}."""
     from rtdsd_tpu_torch.models import aasist, wav2vec2
-    from rtdsd_tpu_torch.ops import attention, gat
+    from rtdsd_tpu_torch.ops import attention, fastgelu, gat
 
     def attention_close(got, want):
         kind = "bf16" if got.dtype == torch.bfloat16 else "f32"
@@ -1413,6 +1497,11 @@ def kernels_held_to_plain(worst: dict):
 
     def gat_close(got, want):
         torch.testing.assert_close(got, want, rtol=GAT_TOL[0], atol=GAT_TOL[1])
+
+    def same_bits(got, want):
+        if not torch.equal(got, want) or got.stride() != want.stride():
+            raise AssertionError(f"gelu_fast {tuple(got.shape)} differs from "
+                                 f"the plain chain")
 
     def held(name, fn, ref, close):
         def call(*args, **kwargs):
@@ -1430,7 +1519,8 @@ def kernels_held_to_plain(worst: dict):
              (aasist, "fused_gat_aggregate", gat.fused_gat_aggregate_reference,
               gat_close),
              (aasist, "fused_htrg_gat_aggregate",
-              gat.fused_htrg_gat_aggregate_reference, gat_close)]
+              gat.fused_htrg_gat_aggregate_reference, gat_close),
+             (fastgelu, "gelu_fast", fastgelu.gelu_fast_reference, same_bits)]
     saved = [(m, n, getattr(m, n)) for m, n, _, _ in swaps]
     try:
         for m, n, ref, close in swaps:
@@ -1612,6 +1702,32 @@ def dispatch_sums(eng) -> dict:
             for f in ("score", "escalate")}
 
 
+def warm_dispatches(eng) -> dict:
+    """The dispatches ``eng.warmup()`` made, by family: each configured
+    shape once (``extend_const`` runs no conv), and under the zero-segment
+    fastpath the extend that derives the conv(0) rows. Read right after
+    the warm-up, before the adaptive provisioning adds rungs."""
+    n = {"extend": int(eng._fastpath), "score": 0, "escalate": 0}
+    for name, _rows, _dispatch in eng._shapes():
+        if name != "extend_const":
+            n[name.split("_")[0]] += 1
+    return n
+
+
+def serve_gelu(eng, warm: dict, layers: int, esc_layers: int = 0) -> int:
+    """gelu_fast launches of a served run: the front-end's a conv extend,
+    the positional conv's and the layers' a score dispatch, a whole
+    forward of the flagship an escalation; the warm-up's (``warm``) and a
+    conv(0) rows' extend again after a weight swap included."""
+    extends = sum(v for k, v in eng.dispatch_counts.items()
+                  if k.split("_")[0] == "extend" and k != "extend_const")
+    extends += int(eng.model_swaps > 0 and eng._const_rows is not None)
+    n = dispatch_sums(eng)
+    return (FRONTEND_GELU * (warm["extend"] + extends)
+            + (1 + layers) * (warm["score"] + n["score"])
+            + w2v_gelu(esc_layers) * (warm["escalate"] + n["escalate"]))
+
+
 def run_serve(cfg: str, ckpt: str, waves: dict, tag: str, extra=(),
               source=None) -> dict:
     """Serve the files through ``rtdsd_tpu_torch.cli.serve`` (1 s windows,
@@ -1625,11 +1741,12 @@ def run_serve(cfg: str, ckpt: str, waves: dict, tag: str, extra=(),
 
     out = os.path.join(WORK, "serve", f"{tag}.txt")
     paths = list(waves)
-    engines, build = [], cli.build_engine
+    engines, build, warm = [], cli.build_engine, []
 
     def capture(args, n):
         eng, sr = build(args, n)
         engines.append(eng)
+        warm.append(warm_dispatches(eng))
         return eng, sr
 
     buf, err = io.StringIO(), io.StringIO()
@@ -1674,8 +1791,8 @@ def run_serve(cfg: str, ckpt: str, waves: dict, tag: str, extra=(),
     with open(out) as f:
         if [l.split(" ")[0] for l in f.read().splitlines()] != paths:
             raise RuntimeError(f"serve {tag}: --out lists other files")
-    return dict(launches=launches, eng=engines[0], windows=windows,
-                err=err.getvalue().splitlines(), wall=wall)
+    return dict(launches=launches, eng=engines[0], warm=warm[0],
+                windows=windows, err=err.getvalue().splitlines(), wall=wall)
 
 
 def serve_path(ckpt: str, screener_ckpt: str, sd: dict, screener_sd: dict,
@@ -1715,7 +1832,8 @@ def serve_path(ckpt: str, screener_ckpt: str, sd: dict, screener_sd: dict,
         eng, n = r["eng"], dispatch_sums(r["eng"])
         score, esc = n["score"] + 1, (n["escalate"] + 1 if layers[1] else 0)
         want = launches_want(layers[0] * score + layers[1] * esc, score + esc,
-                             144 if tag == "w8a8" else 0)
+                             144 if tag == "w8a8" else 0,
+                             serve_gelu(eng, r["warm"], *layers))
         marks = [m for ws in r["windows"].values() for w in ws for m in w[2]]
         n_win = sum(map(len, r["windows"].values()))
         tick = next(l for l in r["err"] if "tick p50" in l)
@@ -1767,12 +1885,14 @@ def serve_direct(model, waves: list, res: list) -> np.ndarray:
         for j in range(0, len(cuts), SERVE_STREAMS)])
 
 
-def log_held(what: str, worst: dict) -> None:
+def log_held(what: str, worst: dict, bf16: bool = False) -> None:
+    """Log the held calls; every kernel of the forward must be among them
+    (``gelu_fast`` only in bf16: float32 takes the exact erf)."""
     log(f"  {what}: every kernel call against its plain version on the same "
         "inputs: " + "; ".join(f"{n} {c} calls at {sorted(shapes)}, max|d| "
                                f"{e:.3g}" for n, (c, e, shapes) in worst.items()))
-    if set(worst) != {"mha_small_t", "fused_gat_aggregate",
-                      "fused_htrg_gat_aggregate"}:
+    want = {"mha_small_t", "fused_gat_aggregate", "fused_htrg_gat_aggregate"}
+    if set(worst) != (want | {"gelu_fast"} if bf16 else want):
         raise RuntimeError(f"{what}: kernels held {sorted(worst)}")
 
 
@@ -1828,7 +1948,7 @@ def serve_device(sd: dict, screener_sd: dict, dev, files: dict) -> None:
             res = serve_all(engine(screener, 8, escalate=flagship,
                                    escalate_band=1e9), waves[:8])
         log_held(f"serve cascade {kind}, 8 streams, {len(res)} windows "
-                 f"escalated", worst)
+                 f"escalated", worst, bf16=kind == "bf16")
         if not all(r[3] for r in res) or not np.all(np.isfinite([r[2] for r in res])):
             raise RuntimeError("cascade windows not escalated or not finite")
         del screener
@@ -1885,7 +2005,7 @@ def serve_timed(model) -> None:
         with kernels_held_to_plain(worst):
             first = tick()
         log_held(f"serve bf16, {streams} streams, one tick ({len(first)} "
-                 f"windows)", worst)
+                 f"windows)", worst, bf16=True)
         counts0 = dict(eng.dispatch_counts)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2105,7 +2225,7 @@ def daemon_cli(ckpt: str, files: dict) -> dict:
 
     def capture(args, n):
         eng, sr = build(args, n)
-        engines.append(eng)
+        engines.append((eng, warm_dispatches(eng)))
         return eng, sr
 
     def stderr_text():
@@ -2175,9 +2295,9 @@ def daemon_cli(ckpt: str, files: dict) -> dict:
     if state["errors"]:
         raise state["errors"][0]
     stats = [l for l in text.splitlines() if "] streams=" in l]
-    eng = engines[0]
+    eng, warm = engines[0]
     score = dispatch_sums(eng)["score"] + 1
-    want = launches_want(24 * score, score)
+    want = launches_want(24 * score, score, gelu=serve_gelu(eng, warm, 24))
     got = {}
     for p, out in state["outs"].items():
         lines = out.splitlines()
@@ -2470,15 +2590,17 @@ def train_cli(sd: dict, dev) -> dict:
     wall = time.perf_counter() - t0
     launches = read_counters()
     steps_, dev_batches = TRAIN_CLIPS // TRAIN_BATCH, -(-DEV_CLIPS // TRAIN_BATCH)
-    want = launches_want(48 * steps_ + 24 * dev_batches, dev_batches)
+    want = launches_want(48 * steps_ + 24 * dev_batches, dev_batches,
+                         gelu=TRAIN_STEP_GELU * steps_
+                         + w2v_gelu(24) * dev_batches)
     with open(os.path.join(root, "runs", "metrics.jsonl")) as f:
         recs = [json.loads(l) for l in f]
     losses = [r["Loss"] for r in recs if "Loss" in r]
     last = os.path.join(root, "runs", "last")
     log(f"4j train CLI (bf16, RawBoost4, batch {TRAIN_BATCH}, 1 epoch: "
         f"{steps_} steps + {dev_batches} dev batch): launches {launches} "
-        f"(want {want}: 48 attention a step, forward and remat recompute, no "
-        f"GAT; 24, 2, 4 a dev batch); losses {losses}; dev "
+        f"(want {want}: 48 attention and 56 GELU a step, forward and remat "
+        f"recompute, no GAT; 24, 2, 4 and 32 a dev batch); losses {losses}; dev "
         f"{[(r['Dev Loss'], r['Dev Acc']) for r in recs if 'Dev Loss' in r]}; "
         f"last/ {sorted(os.listdir(last))}; wall {wall:.1f} s incl. build, "
         f"SSL load and the checkpoint write")
@@ -2496,7 +2618,8 @@ def train_cli(sd: dict, dev) -> dict:
     with open(os.path.join(root, "scores_la19.txt")) as f:
         lines = f.read().splitlines()
     vals = np.array([float(l.split(" ")[1]) for l in lines])
-    want = launches_want(24 * dev_batches, dev_batches)
+    want = launches_want(24 * dev_batches, dev_batches,
+                         gelu=w2v_gelu(24) * dev_batches)
     log(f"4j scoring from last/: {len(lines)} scores, finite "
         f"{int(np.isfinite(vals).sum())}; launches {score_launches} "
         f"(want {want})")
@@ -2820,7 +2943,7 @@ def train_timed(sd: dict, dev, card: str) -> None:
         log(f"  class {cls:22s} {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n}")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:10]:
         log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<5d} {key[:90]}")
-    if launches != launches_want(48):
+    if launches != launches_want(48, gelu=TRAIN_STEP_GELU):
         raise RuntimeError(f"4j (c): a train step launched {launches}")
     del state, model
     torch.cuda.empty_cache()
@@ -2941,7 +3064,7 @@ def ddp_world1(sd: dict, dev, card: str, losses_4j: list) -> None:
         ", ".join(f"{k} {statistics.median(t):.1f} ms [{min(t):.1f}, "
                   f"{max(t):.1f}]" for k, t in times.items()) +
         f"; one DDP step's launches {launches}")
-    if launches != launches_want(48):
+    if launches != launches_want(48, gelu=TRAIN_STEP_GELU):
         raise RuntimeError(f"4n (a): a DDP step launched {launches}")
     del runs, state, model
     torch.cuda.empty_cache()
@@ -3335,7 +3458,9 @@ def conformer_train_cli(cfg: str) -> dict:
     wall = time.perf_counter() - t0
     launches = read_counters()
     steps_, dev_batches = TRAIN_CLIPS // TRAIN_BATCH, -(-DEV_CLIPS // TRAIN_BATCH)
-    want = launches_want(48 * steps_ + 24 * dev_batches)
+    want = launches_want(48 * steps_ + 24 * dev_batches,
+                         gelu=TRAIN_STEP_GELU * steps_
+                         + w2v_gelu(24) * dev_batches)
     runs = os.path.join(root, "runs_conformer")
     with open(os.path.join(runs, "metrics.jsonl")) as f:
         recs = [json.loads(l) for l in f]
@@ -3344,8 +3469,9 @@ def conformer_train_cli(cfg: str) -> dict:
     log(f"4k (b) XLSR_Conformer train CLI (bf16, ssl_pytree_path, "
         f"{'+'.join(CONFORMER_AUGS)}, {NOISE_FILES} noise files, batch "
         f"{TRAIN_BATCH}, 1 epoch: {steps_} steps + {dev_batches} dev batch): "
-        f"launches {launches} (want {want}: 48 attention a step, forward and "
-        f"remat recompute, 24 a dev batch, no GAT); losses {losses}; dev "
+        f"launches {launches} (want {want}: 48 attention and 56 GELU a step, "
+        f"forward and remat recompute, 24 and 32 a dev batch, no GAT); losses "
+        f"{losses}; dev "
         f"{[(r['Dev Loss'], r['Dev Acc']) for r in recs if 'Dev Loss' in r]}; "
         f"last/ {sorted(os.listdir(last))}; wall {wall:.1f} s incl. the "
         f"pytree read, the host chain and the checkpoint write")
@@ -3362,7 +3488,7 @@ def conformer_train_cli(cfg: str) -> dict:
     score_launches = read_counters()
     with open(os.path.join(root, "scores_conformer.txt")) as f:
         vals = np.array([float(l.split(" ")[1]) for l in f.read().splitlines()])
-    want = launches_want(24 * dev_batches)
+    want = launches_want(24 * dev_batches, gelu=w2v_gelu(24) * dev_batches)
     log(f"4k (b) scoring from last/: {len(vals)} scores, finite "
         f"{int(np.isfinite(vals).sum())}; launches {score_launches} (want "
         f"{want})")
@@ -3524,7 +3650,7 @@ def conformer_train_timed(ssl_sd: dict, noise: str, dev, card: str) -> None:
         log(f"  class {cls:22s} {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n}")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
         log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<5d} {key[:90]}")
-    if launches != launches_want(48):
+    if launches != launches_want(48, gelu=TRAIN_STEP_GELU):
         raise RuntimeError(f"4k (d): a train step launched {launches}")
     del state, model
     torch.cuda.empty_cache()
@@ -3673,7 +3799,8 @@ def kd_cli(ckpt: str, ssl_pt: str, card: str) -> dict:
     launches = read_counters()
     steps_, dev_batches = TRAIN_CLIPS // TRAIN_BATCH, -(-DEV_CLIPS // TRAIN_BATCH)
     want = launches_want((24 + 6 + 6) * steps_ + 6 * dev_batches,
-                         steps_ + dev_batches)
+                         steps_ + dev_batches,
+                         gelu=KD_STEP_GELU * steps_ + w2v_gelu(6) * dev_batches)
     runs = os.path.join(root, "kd_runs")
     with open(os.path.join(runs, "kd_metrics.jsonl")) as f:
         recs = [json.loads(l) for l in f]
@@ -3687,8 +3814,8 @@ def kd_cli(ckpt: str, ssl_pt: str, card: str) -> dict:
         f"fast_softmax off, RawBoost4, batch {TRAIN_BATCH}, 1 s crops, 1 "
         f"epoch: {steps_} steps + {dev_batches} dev batch): copy before the "
         f"first step {found}; {card}: launches {launches} (want {want}: 24 teacher "
-        f"+ 6 + 6 student forward and recompute attention and 2 + 4 teacher "
-        f"GAT a step, 6, 2, 4 a dev batch); logged "
+        f"+ 6 + 6 student forward and recompute attention, 2 + 4 teacher "
+        f"GAT and 32 + 20 GELU a step, 6, 2, 4 and 14 a dev batch); logged "
         + "; ".join(", ".join(f"{k} {r[k]:.5g}" for k in terms)
                     for r in step_recs)
         + f"; dev {[(r['Dev Loss'], r['Dev Acc']) for r in recs if 'Dev Loss' in r]}"
@@ -3714,7 +3841,8 @@ def kd_cli(ckpt: str, ssl_pt: str, card: str) -> dict:
         got = read_counters()
         with open(scores) as f:
             vals = np.array([float(l.split(" ")[1]) for l in f])
-        want = launches_want(6 * dev_batches, dev_batches, quant)
+        want = launches_want(6 * dev_batches, dev_batches, quant,
+                             w2v_gelu(6) * dev_batches)
         log(f"4l (a) student scoring from last_kd/ ({mode}), {card}: {len(vals)} "
             f"scores, finite {int(np.isfinite(vals).sum())}, |score| max "
             f"{np.abs(vals).max():.4g}; launches {got} (want {want})")
@@ -3920,7 +4048,7 @@ def kd_timed(sd: dict, dev, card: str) -> None:
         log(f"  class {cls:22s} {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n}")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
         log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<5d} {key[:90]}")
-    if launches != launches_want(36, 1):
+    if launches != launches_want(36, 1, gelu=KD_STEP_GELU):
         raise RuntimeError(f"4l (c): a KD step launched {launches}")
     if not all(np.isfinite(float(v)) for v in m.values()):
         raise RuntimeError(f"4l (c): KD step metrics {m}")
@@ -4005,14 +4133,14 @@ models = sorted(m for m in sys.modules if m in (
     "rtdsd_tpu_torch.models.conformer", "rtdsd_tpu_torch.models.zoo")
     or m.split(".")[0] in ("jax", "flax", "rtdsd_tpu"))
 import torch
-from rtdsd_tpu_torch.ops import attention, convstack, gat, quant
+from rtdsd_tpu_torch.ops import attention, convstack, fastgelu, gat, quant
 if torch.cuda.is_available():
     torch.cuda.synchronize()
 with open(out, "w") as f:
     json.dump({"models": models, "launches": {fn.__name__: fn.launches for fn in (
         attention.mha_small_t, gat.fused_gat_aggregate,
         gat.fused_htrg_gat_aggregate, quant.quantize_int8, convstack.ln_gelu,
-        convstack.conv_ln_gelu_grouped)}}, f)
+        convstack.conv_ln_gelu_grouped, fastgelu.gelu_fast)}}, f)
 sys.exit(code)
 """
 
@@ -4087,7 +4215,7 @@ def export_batch(ckpt: str, cli_scores: dict, card: str) -> dict:
          out], "infer")
     d = _held_scores("4m (a) infer", _score_file(out), cli_scores)
     batches = -(-N_CLIPS // B)
-    want = launches_want(24 * batches, batches)
+    want = launches_want(24 * batches, batches, gelu=w2v_gelu(24) * batches)
     log(f"4m (a) cli.export (fresh process) XLSR_AASIST bf16 --batch sym "
         f"--platforms cuda: wall {e_wall:.1f} s incl. start, load and trace; "
         f"program {meta['artifact_bytes'] / 2**20:.3f} MiB, params "
@@ -4125,7 +4253,7 @@ def export_batch(ckpt: str, cli_scores: dict, card: str) -> dict:
     si_wall, si_launches = time.perf_counter() - t0, read_counters()
     d = _held_scores("4m (a) student infer", _score_file(sout), want_kd)
     sb = -(-len(sfiles) // TRAIN_BATCH)
-    want_s = launches_want(6 * sb, sb)
+    want_s = launches_want(6 * sb, sb, gelu=w2v_gelu(6) * sb)
     log(f"4m (a) student (last_kd/, --student --w8a8 --batch {TRAIN_BATCH}, "
         f"4l's scoring batch): export wall "
         f"{se_wall:.1f} s, program {smeta['artifact_bytes'] / 2**20:.3f} MiB, "
@@ -4179,7 +4307,9 @@ def export_stream(ckpt: str, incremental: dict) -> dict:
             worst = max(worst, abs(float(g[2]) - want[s]) / max(1.0, abs(want[s])))
             n += 1
     calls = sum(-(-len(incremental[p]) // STREAM_BATCH) for p in paths)
-    want_l = launches_want(24 * calls, calls)
+    # the conv program once a file, the score program once a call
+    want_l = launches_want(24 * calls, calls, gelu=FRONTEND_GELU * len(paths)
+                           + (1 + 24) * calls)
     log(f"4m (b) streaming bundle: export wall {e_wall:.1f} s ("
         f"{_sizes(prefix, ('.conv', '.score', '.params'))}), launches "
         f"{e_launches}; infer --per_window --batch_size {STREAM_BATCH} on "
@@ -4309,7 +4439,8 @@ def export_serving(ckpt: str, screener_ckpt: str, sd: dict, screener_sd: dict,
     r = run_serve(None, None, files, "artifact", source=["--artifact", prefix])
     n = dispatch_sums(r["eng"])
     score, esc = n["score"] + 1, n["escalate"] + 1
-    want = launches_want(6 * score + 24 * esc, score + esc)
+    want = launches_want(6 * score + 24 * esc, score + esc,
+                         gelu=serve_gelu(r["eng"], r["warm"], 6, 24))
     marks = [m for ws in r["windows"].values() for w in ws for m in w[2]]
     tick = next(l for l in r["err"] if "tick p50" in l)
     log(f"4m (c) cli.serve --artifact: {sum(map(len, r['windows'].values()))} "
@@ -4346,7 +4477,7 @@ def daemon_artifact(prefix: str, files: dict) -> dict:
 
     def capture(args, n):
         eng, sr = build(args, n)
-        engines.append(eng)
+        engines.append((eng, warm_dispatches(eng)))
         return eng, sr
 
     def text():
@@ -4400,10 +4531,11 @@ def daemon_artifact(prefix: str, files: dict) -> dict:
     if state["errors"]:
         log(f"daemon --artifact stderr, its end:\n{text()[-4000:]}")
         raise state["errors"][0]
-    eng = engines[0]
+    eng, warm = engines[0]
     n = dispatch_sums(eng)
     score, esc = n["score"] + 1, n["escalate"] + 1
-    want = launches_want(6 * score + 24 * esc, score + esc)
+    want = launches_want(6 * score + 24 * esc, score + esc,
+                         gelu=serve_gelu(eng, warm, 6, 24))
     wins = {p: [s for s, _, _ in w] for p, w in state["windows"].items()}
     ok = all(wins[p] == serve_starts(len(files[p])) and
              np.all(np.isfinite([v for _, v, _ in state["windows"][p]]))
@@ -4471,7 +4603,7 @@ def frontend_path(sd: dict, dev) -> dict:
     launches = read_counters()
     want = {"mha_small_t": 0, "fused_gat_aggregate": 0,
             "fused_htrg_gat_aggregate": 0, "quantize_int8": 0, "ln_gelu": 2,
-            "conv_ln_gelu_grouped": 12}
+            "conv_ln_gelu_grouped": 12, "gelu_fast": 0}
     err = {k: (fused[k] - out[k]).abs().max().item() for k in fused}
     gap = (out["bf16"] - out["f32"]).abs().max().item()
     bf16_tol = 2 * gap + 0.02
@@ -4592,12 +4724,13 @@ def profile_forward(model, waves, top: int = 12, label: str = "bf16",
 def plain_kernels():
     """Swap every kernel wrapper the model calls for its plain version."""
     from rtdsd_tpu_torch.models import aasist, wav2vec2
-    from rtdsd_tpu_torch.ops import attention, gat
+    from rtdsd_tpu_torch.ops import attention, fastgelu, gat
 
     swaps = [(wav2vec2, "mha_small_t", attention.mha_small_t_reference),
              (aasist, "fused_gat_aggregate", gat.fused_gat_aggregate_reference),
              (aasist, "fused_htrg_gat_aggregate",
-              gat.fused_htrg_gat_aggregate_reference)]
+              gat.fused_htrg_gat_aggregate_reference),
+             (fastgelu, "gelu_fast", fastgelu.gelu_fast_reference)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     try:
         for m, n, f in swaps:
@@ -4612,11 +4745,11 @@ def plain_kernels():
 def ctypes_binding():
     """Swap the models' kernel calls for the kernels' ctypes launches
     called directly (``attention.launch``, ``gat.launch_gat``,
-    ``gat.launch_htrg``), as the port bound them before they were
-    ``torch.library`` operators: the same kernels without the
-    dispatcher."""
+    ``gat.launch_htrg``, ``fastgelu.launch``), as the port bound them
+    before they were ``torch.library`` operators: the same kernels without
+    the dispatcher."""
     from rtdsd_tpu_torch.models import aasist, wav2vec2
-    from rtdsd_tpu_torch.ops import attention, gat
+    from rtdsd_tpu_torch.ops import attention, fastgelu, gat
 
     swaps = [(wav2vec2, "mha_small_t",
               lambda q, k, v, scale=None: attention.launch(
@@ -4625,7 +4758,8 @@ def ctypes_binding():
               lambda x, w, b, a, t=1.0: gat.launch_gat(x, w, b, a, t)),
              (aasist, "fused_htrg_gat_aggregate",
               lambda x, w, b, w11, w22, w12, n1, t=1.0: gat.launch_htrg(
-                  x, w, b, w11, w22, w12, n1, t))]
+                  x, w, b, w11, w22, w12, n1, t)),
+             (fastgelu, "gelu_fast", fastgelu.launch)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     try:
         for m, n, f in swaps:
@@ -4650,17 +4784,18 @@ def binding_cost(model, waves, card: str) -> None:
             with ctx():
                 for b in (B, 1):
                     times[(kind, b)].append(steady_ms_per_clip(model, waves[:b]))
-                reset_counters()
-                with torch.inference_mode():
-                    model(waves[:1])
-                launches[kind] = read_counters()
+            # counted outside the swap, which replaces fastgelu.gelu_fast
+            reset_counters()
+            with ctx(), torch.inference_mode():
+                model(waves[:1])
+            launches[kind] = read_counters()
     log(f"binding cost, bf16 forward ms/clip, median [min, max] of "
         f"{2 * STEADY_REPEATS} runs in turns, {card}: " + ", ".join(
             f"{k} batch {b} {statistics.median(t):.4f} [{min(t):.4f}, "
             f"{max(t):.4f}]" for (k, b), t in times.items())
         + f"; launches a batch-1 forward: {launches}")
     if launches["operator"] != launches["ctypes"] \
-            or launches["operator"] != launches_want(24, 1):
+            or launches["operator"] != launches_want(24, 1, gelu=w2v_gelu(24)):
         raise RuntimeError(f"binding launches {launches}")
 
 
@@ -4714,6 +4849,9 @@ def main() -> int:
                                             "conv_mma_kernelILi128ELi1E",
                                             "conv_ln_gelu_kernelI13__nv_bfloat16Li512E")):
         log(line)
+    for line in ptxas_summary("fastgelu", ("gelu_vec_kernelI13__nv_bfloat16E",
+                                           "gelu_vec_kernelIfE")):
+        log(line)
     for line in ptxas_summary("gat", ("gat_tiled_kernelILi64ELi1E",
                                       "gat_tiled_kernelILi64ELi2E",
                                       "gat_tiled_kernelILi32ELi1E",
@@ -4747,7 +4885,10 @@ def main() -> int:
                            "rtdsd_tpu/ops/pallas/convstack.py:83"),
                "conv_ln_gelu_grouped": (check_conv(dev), "cuda",
                                         "rtdsd_tpu_torch/csrc/convstack.cu",
-                                        "rtdsd_tpu/ops/pallas/convstack.py:152")}
+                                        "rtdsd_tpu/ops/pallas/convstack.py:152"),
+               "gelu_fast": (check_gelu(dev), "cuda",
+                             "rtdsd_tpu_torch/csrc/fastgelu.cu",
+                             "none (XLA fuses rtdsd_tpu/ops/fastgelu.py)")}
 
     t0 = time.perf_counter()
     ckpt = os.path.join(WORK, "xlsr_aasist_seed0.pt")
@@ -4891,6 +5032,7 @@ def main() -> int:
     launches.update({k: frontend_launches[k]
                      for k in ("ln_gelu", "conv_ln_gelu_grouped")})
     paths = {"quantize_int8": "--w8 CLI run (weights quantized at load)",
+             "gelu_fast": "bf16 CLI scoring, 2 batches (32 a batch)",
              "ln_gelu": "fused_conv_frontend, one bf16 call",
              "conv_ln_gelu_grouped": "fused_conv_frontend, one bf16 call"}
     kernels = [dict(name=k, route=route, source=src, replaces=rep,

@@ -55,7 +55,7 @@ from torch import nn
 
 from rtdsd_tpu_torch.device import resolve_device
 from rtdsd_tpu_torch.models import convert
-from rtdsd_tpu_torch.ops import attention, gat  # noqa: F401  (the operators)
+from rtdsd_tpu_torch.ops import attention, fastgelu, gat  # noqa: F401  (operators)
 from rtdsd_tpu_torch.utils import flax_msgpack
 
 PLATFORMS = ("cpu", "cuda")

@@ -9,7 +9,9 @@ Tests marked ``gpu`` hold each CUDA kernel against its plain version on the
 card; without a CUDA device they skip (``python -m pytest -m gpu
 tests/test_torch_ops.py`` on the GPU machine runs them). The convstack
 kernels' are in tests/test_torch_convstack.py; ``quantize_int8``'s and the
-int8 product's are here, as the rest of their tests need JAX.
+int8 product's are here, as the rest of their tests need JAX. The
+rational-erf GELU (``ops/fastgelu.py``) has no Pallas counterpart: its
+kernel is held to its plain version, bit for bit.
 """
 
 import numpy as np
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from rtdsd_tpu_torch.models.wav2vec2 import int8_matmul
-from rtdsd_tpu_torch.ops import attention, build, gat, quant
+from rtdsd_tpu_torch.ops import attention, build, fastgelu, gat, quant
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -180,7 +182,8 @@ def test_gat_tiled_rule(n, d, do, want):
 
 
 def test_kernel_sources_and_build_dir():
-    assert build.sources() == ["convstack", "gat", "mha_small_t", "quant"]
+    assert build.sources() == ["convstack", "fastgelu", "gat", "mha_small_t",
+                               "quant"]
     path = build.library_path("gat")
     assert path.startswith(build.BUILD_DIR) and path.endswith(".so")
 
@@ -432,3 +435,153 @@ def test_int8_matmul_on_card_is_exact(cuda, rows):
     got = int8_matmul(a, b)
     # |sums| < 2^24 * 1024 < 2^53: exact in float64
     assert torch.equal(got.double(), a.double() @ b.double())
+
+
+# ------------------------------------------------------------ fast GELU
+
+_INT = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+        torch.float16: torch.int16}
+
+
+def _gelu_input(dtype, device="cpu", shape=(4099,)):
+    """Normal values over the clamp's edge, with +-0, +-inf and NaN."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(shape, generator=g) * 3
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                            float("nan")])[:x.numel()]
+    x.view(-1)[:len(special)] = special
+    return x.to(dtype).to(device)
+
+
+def _assert_same_bits(got, want):
+    """Bit for bit, NaN as NaN (its payload aside), same layout."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.stride() == want.stride()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    bits = _INT[want.dtype]
+    assert torch.equal(got.masked_fill(nan, 0).view(bits),
+                       want.masked_fill(nan, 0).view(bits))
+
+
+# (B, 512, frames) as the front-end's LayerNorm leaves it, the transpose of
+# a contiguous tensor; (B, T, D) as the positional conv's even-kernel trim
+# leaves it, the transpose of a slice (not dense); the FFN hidden, contiguous
+_GELU_LAYOUTS = {
+    "frontend": lambda x: x.reshape(2, 23, 16).transpose(1, 2),
+    "positional": lambda x: x.reshape(2, 16, 23)[:, :, :-1].transpose(1, 2),
+    "ffn": lambda x: x.reshape(46, 16),
+}
+
+
+@pytest.mark.parametrize("dtype", list(_INT))
+def test_gelu_fast_cpu_path_is_the_plain_chain(dtype):
+    x = _gelu_input(dtype)
+    before = fastgelu.gelu_fast.launches
+    _assert_same_bits(fastgelu.gelu_fast(x), fastgelu.gelu_fast_reference(x))
+    assert fastgelu.gelu_fast.launches == before
+
+
+@pytest.mark.parametrize("layout", list(_GELU_LAYOUTS))
+def test_gelu_fast_fake_gives_the_plain_layout(layout):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    x = _GELU_LAYOUTS[layout](_gelu_input(torch.bfloat16, shape=(736,)))
+    want = fastgelu.gelu_fast_reference(x)
+    with FakeTensorMode() as mode:
+        got = torch.ops.rtdsd.gelu_fast(mode.from_tensor(x))
+    assert (got.shape, got.dtype, got.stride()) == (want.shape, want.dtype,
+                                                    want.stride())
+
+
+def test_gelu_fast_exports_as_one_node():
+    class Tiny(torch.nn.Module):
+        def forward(self, x):
+            return fastgelu.gelu(x) + 1
+
+    ep = torch.export.export(Tiny(), (_gelu_input(torch.bfloat16)[:64],))
+    ops = [n.target for n in ep.graph.nodes if n.op == "call_function"]
+    assert ops.count(torch.ops.rtdsd.gelu_fast.default) == 1
+    assert len(ops) == 2                   # and the add
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gelu_fast_gradient_is_the_plain_chains(dtype):
+    x = _gelu_input(dtype)[5:].requires_grad_()         # finite values
+    g = _gelu_input(dtype, shape=(4094,)).nan_to_num(0.0, 1.0, -1.0)
+    got, = torch.autograd.grad(fastgelu.gelu_fast(x), x, g)
+    want, = torch.autograd.grad(fastgelu.gelu_fast_reference(x), x, g)
+    _assert_same_bits(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_gelu_kernel_every_16_bit_pattern(cuda, dtype):
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device=cuda
+                     ).to(torch.int16).view(dtype)
+    _assert_same_bits(fastgelu.gelu_fast(x), fastgelu.gelu_fast_reference(x))
+
+
+@pytest.mark.gpu
+def test_gelu_kernel_float32(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(1 << 20, generator=g, device=cuda) * 3
+    # and values over every exponent, subnormals included
+    x[: 1 << 16] = torch.randint(-2 ** 31, 2 ** 31 - 1, (1 << 16,),
+                                 generator=g, device=cuda,
+                                 dtype=torch.int32).view(torch.float32)
+    _assert_same_bits(fastgelu.gelu_fast(x), fastgelu.gelu_fast_reference(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", list(_GELU_LAYOUTS))
+@pytest.mark.parametrize("dtype", list(_INT))
+def test_gelu_kernel_takes_model_layouts(cuda, layout, dtype):
+    x = _GELU_LAYOUTS[layout](_gelu_input(dtype, cuda, (736,)))
+    _assert_same_bits(fastgelu.gelu_fast(x), fastgelu.gelu_fast_reference(x))
+
+
+# lengths around whole 16-byte vectors and whole blocks, views that start
+# off a 16-byte boundary (read one element a thread)
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 4095, 4097, 1_000_003])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gelu_kernel_ragged_and_unaligned(cuda, n, offset, dtype):
+    x = _gelu_input(dtype, cuda, (n + offset,))[offset:]
+    _assert_same_bits(fastgelu.gelu_fast(x), fastgelu.gelu_fast_reference(x))
+
+
+@pytest.mark.gpu
+def test_gelu_kernel_counts_and_refuses(cuda):
+    x = _gelu_input(torch.bfloat16, cuda)
+    before = fastgelu.gelu_fast.launches
+    fastgelu.gelu_fast(x)
+    fastgelu.gelu_fast(x[:100])
+    assert fastgelu.gelu_fast.launches == before + 2
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        fastgelu.gelu_fast(x.double())
+
+
+@pytest.mark.gpu
+def test_gelu_kernel_in_bf16_encoder(cuda, monkeypatch):
+    """A tiny bf16 encoder gives the plain chain's output bit for bit, with
+    one launch per conv layer, one for the positional conv and one a
+    layer."""
+    from rtdsd_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
+
+    cfg = Wav2Vec2Config(
+        conv_layers=((32, 10, 5),) + ((32, 3, 2),) * 4 + ((32, 2, 2),) * 2,
+        encoder_embed_dim=64, encoder_ffn_dim=128, encoder_heads=4,
+        encoder_layers=2, conv_pos=16, conv_pos_groups=4)
+    torch.manual_seed(0)
+    model = Wav2Vec2Encoder(cfg, torch.bfloat16).to(cuda).eval()
+    wave = torch.randn(3, 16000, device=cuda)
+    before = fastgelu.gelu_fast.launches
+    with torch.inference_mode():
+        got = model(wave)
+    assert fastgelu.gelu_fast.launches - before == 7 + 1 + 2
+    monkeypatch.setattr(fastgelu, "gelu_fast", fastgelu.gelu_fast_reference)
+    with torch.inference_mode():
+        want = model(wave)
+    _assert_same_bits(got, want)
