@@ -9,10 +9,9 @@ and its bytes are Q, K and V read once and the output written once.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
-HBM_BYTES_PER_S = 3.35e12
+from benchmark.harness.card import ELEM_BYTES
 
 
 def conv_frames(conv: Sequence[Tuple[int, int, int]], samples: int) -> list:
@@ -106,7 +105,14 @@ def attention_launch(batch: int, frames: int, heads: int, head_dim: int,
     return ops, nbytes
 
 
-def bound_seconds(ops: float, nbytes: float, dtype: str) -> float:
-    """The least time the card could take: the larger of the operations
-    over the peak rate and the bytes over the memory bandwidth."""
-    return max(ops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S)
+def kernels(cfg: dict, rows: int, frames: int
+            ) -> Dict[str, Tuple[float, float, str]]:
+    """{kernel: (operations, bytes, dtype)} of one launch of each kernel
+    that ``programs/xlsr_aasist.py::kernels`` lists, at ``rows`` clips of
+    ``frames`` encoder frames: the encoder's attention."""
+    dtype = cfg["program"]["compute_dtype"]
+    heads = cfg["num_attention_heads"]
+    ops, nbytes = attention_launch(rows, frames, heads,
+                                   cfg["hidden_size"] // heads,
+                                   ELEM_BYTES[dtype])
+    return {"mha_small_t": (ops, nbytes, dtype)}

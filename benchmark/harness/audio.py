@@ -1,4 +1,6 @@
-"""Seeded test audio: slowly modulated tones in noise, with no silence.
+"""Seeded test audio: slowly modulated tones in noise, with no silence;
+WAV files of it, and a clip fitted to a duration as the reference scores
+it.
 
 The sizes are fixed by the caller; the seed draws the content (tone,
 modulation, levels), so every seed makes the same amount of work. The
@@ -63,6 +65,15 @@ def read_wav(path: str) -> np.ndarray:
             raise ValueError(f"{path}: not mono 16-bit PCM")
         raw = f.readframes(f.getnframes())
     return np.frombuffer(raw, "<i2").astype(np.float32) / 32768.0
+
+
+def fit_duration(clip: Sequence[float], duration: int) -> torch.Tensor:
+    """A clip repeat-tiled to ``duration`` samples and cut to its first
+    ``duration`` (the reference repo's ``pad`` for evaluation), in plain
+    PyTorch: what the reference scores in place of the loader's batch."""
+    x = torch.as_tensor(clip, dtype=torch.float32).reshape(-1)
+    reps = -(-duration // x.numel())
+    return x.repeat(reps)[:duration]
 
 
 def write_track(root: str, rng: np.random.Generator,

@@ -1,6 +1,8 @@
 """Steps every traffic kind shares: the model under test and its weights,
 the census of its narrow operations, the device's peak memory, freeing the
-program's state, and the reference's answers and the comparison."""
+program's state, the kernels' roofline readings, and the reference's
+answers and the comparison. Each goes through the configuration's family
+(``runner.family``)."""
 
 from __future__ import annotations
 
@@ -12,10 +14,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from benchmark.harness import compare, program
+from benchmark.harness import card, compare, program
 from benchmark.harness.census import Census
 from benchmark.harness.weights import model_weights
-from benchmark.reference import xlsr_aasist as ref
 
 
 class Phases:
@@ -60,13 +61,43 @@ def free(device) -> None:
         torch.cuda.empty_cache()
 
 
+def kernel_readings(ctx, before: Dict[str, Tuple[str, int]], tr,
+                    rows: int, frames: int) -> Dict[str, float]:
+    """``kernel_s.<kernel>`` and ``bound_s.<kernel>`` for each kernel of
+    the family's ``program.kernels()``: its device seconds in the trace
+    ``tr``, and the least time its launches since ``before`` (that list
+    read earlier) could take, each launch at ``rows`` clips of ``frames``
+    frames as ``counts.kernels`` counts it."""
+    fam = ctx.family
+    after = fam.program.kernels()
+    counted = fam.counts.kernels(ctx.config, rows, frames)
+    if set(counted) != set(after):
+        raise ValueError(f"family {fam.name!r}: the program's kernels "
+                         f"{sorted(after)} are not the counted "
+                         f"{sorted(counted)}")
+    out = {}
+    for name, (in_trace, launches) in after.items():
+        ops, nbytes, dtype = counted[name]
+        out["kernel_s." + name] = tr.kernel_seconds(in_trace)
+        out["bound_s." + name] = (launches - before[name][1]) \
+            * card.bound_seconds(ops, nbytes, dtype)
+    return out
+
+
+def reference_scores(ctx, weights, waves: torch.Tensor, block: int = 40,
+                     precision: str = "float32") -> np.ndarray:
+    """The family reference's bonafide logits of ``waves``."""
+    ref = ctx.family.reference
+    return ref.bonafide_scores(weights, ref.ModelShape(ctx.config), waves,
+                               block=block, precision=precision).numpy()
+
+
 def reference_gaps(ctx, weights, waves: torch.Tensor, got: np.ndarray,
                    index: np.ndarray, block: int = 40) -> Dict[str, float]:
     """The reference's float32 bonafide logits of ``waves`` (one row a
     distinct input), taken at ``index`` for each answer ``got``, against
     the answers: ``compare.gap_numbers``."""
-    want = ref.bonafide_scores(weights, ref.ModelShape(ctx.config), waves,
-                               block=block).numpy()
+    want = reference_scores(ctx, weights, waves, block)
     return compare.gap_numbers(got, want[index])
 
 

@@ -13,21 +13,29 @@ def value(key: str):
     return read
 
 
-def roofline(r: dict) -> Optional[float]:
-    """The attention kernel's share of its roofline (%): the least time
-    its launches could take, from their shapes, over the time they took
-    in the trace."""
-    if not r.get("attn_kernel_s"):
-        return None
-    return 100.0 * r["attn_bound_s"] / r["attn_kernel_s"]
+def roofline_of(kernel: str):
+    """A hand-written kernel's share of its roofline (%): the least time
+    its launches could take, from their shapes (``bound_s.<kernel>``),
+    over the time they took in the trace (``kernel_s.<kernel>``)."""
+    def read(r: dict) -> Optional[float]:
+        if not r.get("kernel_s." + kernel):
+            return None
+        return 100.0 * r["bound_s." + kernel] / r["kernel_s." + kernel]
+    return read
 
 
-def mfu(r: dict) -> Optional[float]:
-    """Model operations of the answers over the seconds they took
-    (``mfu_seconds``), as a share of the card's peak (%)."""
-    if not r.get("mfu_seconds") or "model_flops" not in r:
-        return None
-    return 100.0 * r["model_flops"] / r["mfu_seconds"] / r["peak_flops"]
+def share_of_peak(flops: str, seconds: str):
+    """Model operations (``flops``) over the seconds they took
+    (``seconds``), as a share of the card's peak (%)."""
+    def read(r: dict) -> Optional[float]:
+        if not r.get(seconds) or flops not in r:
+            return None
+        return 100.0 * r[flops] / r[seconds] / r["peak_flops"]
+    return read
+
+
+# model operations of the answers over the seconds they took
+mfu = share_of_peak("model_flops", "mfu_seconds")
 
 
 def idle_share(r: dict) -> Optional[float]:

@@ -6,15 +6,20 @@ cell's file give it:
 
 - ``benchmark/workloads/<cell>.json``: the configuration, the traffic
   kind and its parameters, and the limits of the comparison;
-- ``benchmark/configs/<config>.json``: the model's sizes and how the
-  program builds it;
+- ``benchmark/configs/<config>.json``: the model's sizes, how the
+  program builds it, and its ``family``;
 - ``benchmark/traffic/<kind>.py``: ``run(ctx) -> Outcome``;
-- ``benchmark/metrics/<metric>.py``: ``read(readings) -> float | None``.
+- ``benchmark/metrics/<metric>.py``: ``read(readings) -> float | None``;
+- a family's three parts (:class:`Family`): ``benchmark/reference/
+  <family>.py``, the plain float32 reference; ``benchmark/counts/
+  <family>.py``, its operations and its kernels' operations and bytes;
+  ``benchmark/programs/<family>.py``, the adapter to the program.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import importlib.util
 import json
 import os
@@ -24,6 +29,40 @@ from typing import Dict, List, Optional
 BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rtdsd_tpu")
+FAMILY_PARTS = ("reference", "counts", "programs")
+
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """What the shared code knows of a model family, each part a module
+    found by the family's name:
+
+    - ``reference``: ``ModelShape(cfg)`` (its ``conv``: the front-end's
+      (channels, kernel, stride) a layer), ``param_shapes(shape)``,
+      ``bonafide_scores(p, shape, waves, block, precision)``;
+    - ``counts``: ``forward_flops(cfg, samples)``, ``num_frames(cfg,
+      samples)``, ``kernels(cfg, rows, frames)``;
+    - ``program``: ``program_kwargs(cfg, w8a8)``, ``encoder_depth(model)``,
+      ``stages(model)``, ``census_modules(model)``, ``serving_engine(model,
+      **kw)``, ``kernels()``.
+    """
+    name: str
+    reference: object
+    counts: object
+    program: object
+
+
+def family(cfg: dict) -> Family:
+    """The parts of the family a configuration file names."""
+    name = cfg["family"]
+    parts = []
+    for part in FAMILY_PARTS:
+        path = os.path.join(BENCH, part, name + ".py")
+        if not os.path.exists(path):
+            raise SystemExit(f"family {name!r} has no {part} ({path} is "
+                             f"missing)")
+        parts.append(importlib.import_module(f"benchmark.{part}.{name}"))
+    return Family(name, *parts)
 
 
 @dataclasses.dataclass
@@ -39,6 +78,10 @@ class Context:
     fault: Optional[str] = None     # a planted fault (harness/faults.py)
     w8a8: bool = False              # the program's own int8 path: the control
     t_start: float = 0.0            # perf_counter at process start
+
+    @property
+    def family(self) -> Family:
+        return family(self.config)
 
 
 @dataclasses.dataclass

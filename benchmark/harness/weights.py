@@ -12,7 +12,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from benchmark.reference.xlsr_aasist import ModelShape, param_shapes
+from benchmark.harness.runner import family
 
 SEED_MASK = (1 << 63) - 1
 
@@ -40,11 +40,11 @@ def _rule(name: str, shape: Tuple[int, ...]):
 @torch.no_grad()
 def make_weights(shapes: Dict[str, Tuple[int, ...]], seed: int,
                  device: torch.device) -> Dict[str, torch.Tensor]:
-    """{name: tensor} for ``shapes`` (``param_shapes`` of a reference):
-    linear and conv weights N(0, 1/fan_in), biases and BatchNorm means
-    N(0, 0.02^2), BatchNorm variances exp(N(0, 0.1^2)), norm scales 1,
-    AASIST's edge vectors N(0, 1/Do), its positional and master nodes
-    N(0, 1), step counters 0."""
+    """{name: tensor} for ``shapes`` (a reference's ``param_shapes``), in
+    their order: linear and conv weights N(0, 1/fan_in), biases and
+    BatchNorm means N(0, 0.02^2), BatchNorm variances exp(N(0, 0.1^2)),
+    norm scales 1, AASIST's edge vectors N(0, 1/Do), its positional and
+    master nodes N(0, 1), step counters 0."""
     floats = [(n, s) for n, s in shapes.items()
               if n.rsplit(".", 1)[-1] != "num_batches_tracked"]
     total = sum(_numel(s) for _, s in floats)
@@ -80,13 +80,15 @@ def _numel(shape: Tuple[int, ...]) -> int:
 
 def model_weights(cfg: dict, seed: int, device: torch.device
                   ) -> Dict[str, torch.Tensor]:
-    """The weights of a configuration file's model from ``seed``. Where
-    the file's ``weights`` block says ``graph_pool_scores: zero``, the
-    scoring vectors of AASIST's six graph pools are zero: every node then
+    """The weights of a configuration file's model from ``seed``, drawn
+    for the parameters its family's reference names. Where the file's
+    ``weights`` block says ``graph_pool_scores: zero``, the scoring
+    vectors of AASIST's six graph pools are zero: every node then
     scores the same in any precision, and each pool keeps its first nodes
     by index (a random-weight pool otherwise ranks near-ties that bf16
     rounding reorders)."""
-    w = make_weights(param_shapes(ModelShape(cfg)), seed, device)
+    ref = family(cfg).reference
+    w = make_weights(ref.param_shapes(ref.ModelShape(cfg)), seed, device)
     if cfg.get("weights", {}).get("graph_pool_scores") == "zero":
         for name, t in w.items():
             if name.startswith("pool_") and name.endswith(".proj.weight"):

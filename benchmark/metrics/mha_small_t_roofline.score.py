@@ -1,3 +1,5 @@
 """The mha_small_t kernel's share of its roofline in the traced section (%)."""
 
-from benchmark.harness.readers import roofline as read  # noqa: F401
+from benchmark.harness.readers import roofline_of
+
+read = roofline_of("mha_small_t")

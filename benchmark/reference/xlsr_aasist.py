@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,9 +50,10 @@ SSL = "ssl_model.model."
 
 # ------------------------------------------------------------ configuration
 
-class ModelShape:
-    """Sizes read from a configuration file's keys (the HF config names of
-    the front-end, ``backend`` for AASIST)."""
+class EncoderShape:
+    """Sizes of the front-end and the encoder, read from a configuration
+    file's HF config names; ``conv`` is the conv stack's (channels,
+    kernel, stride) a layer."""
 
     def __init__(self, cfg: dict):
         self.layers = int(cfg["num_hidden_layers"])
@@ -63,12 +64,6 @@ class ModelShape:
             cfg["conv_dim"], cfg["conv_kernel"], cfg["conv_stride"])]
         self.pos_k = int(cfg["num_conv_pos_embeddings"])
         self.pos_groups = int(cfg["num_conv_pos_embedding_groups"])
-        be = cfg["backend"]
-        self.filts = [int(be["filts"][0])] + [tuple(int(x) for x in f)
-                                              for f in be["filts"][1:]]
-        self.gat_dims = tuple(int(x) for x in be["gat_dims"])
-        self.pool_ratios = tuple(float(x) for x in be["pool_ratios"])
-        self.temperatures = tuple(float(x) for x in be["temperatures"])
 
     def num_frames(self, samples: int) -> int:
         t = samples
@@ -77,9 +72,29 @@ class ModelShape:
         return t
 
 
+class ModelShape(EncoderShape):
+    """The encoder's sizes and AASIST's, from the file's ``backend``."""
+
+    def __init__(self, cfg: dict):
+        super().__init__(cfg)
+        be = cfg["backend"]
+        self.filts = [int(be["filts"][0])] + [tuple(int(x) for x in f)
+                                              for f in be["filts"][1:]]
+        self.gat_dims = tuple(int(x) for x in be["gat_dims"])
+        self.pool_ratios = tuple(float(x) for x in be["pool_ratios"])
+        self.temperatures = tuple(float(x) for x in be["temperatures"])
+
+
 def param_shapes(shape: ModelShape) -> Dict[str, Tuple[int, ...]]:
     """Every parameter and buffer of the model, name -> shape, in the
     reference repo's names."""
+    out = encoder_shapes(shape)
+    out.update(_backend_shapes(shape))
+    return out
+
+
+def encoder_shapes(shape: EncoderShape) -> Dict[str, Tuple[int, ...]]:
+    """The front-end's and the encoder's parameters, name -> shape."""
     out: Dict[str, Tuple[int, ...]] = {}
     fe = SSL + "feature_extractor.conv_layers."
     cin = 1
@@ -112,7 +127,6 @@ def param_shapes(shape: ModelShape) -> Dict[str, Tuple[int, ...]]:
         out[lp + "final_layer_norm.bias"] = (d,)
     out[enc + "layer_norm.weight"] = (d,)
     out[enc + "layer_norm.bias"] = (d,)
-    out.update(_backend_shapes(shape))
     return out
 
 
@@ -383,7 +397,6 @@ def logits(p: Params, shape: ModelShape, wave: torch.Tensor) -> torch.Tensor:
     return backend(p, shape, encoder(p, shape, conv_features(p, shape, wave)))
 
 
-@torch.no_grad()
 def bonafide_scores(p: Dict[str, torch.Tensor], shape: ModelShape,
                     waves: torch.Tensor, block: int = 40,
                     precision: str = "float32") -> torch.Tensor:
@@ -391,19 +404,20 @@ def bonafide_scores(p: Dict[str, torch.Tensor], shape: ModelShape,
     off (``precision="fp8"``: every matmul and convolution operand rounded
     to float8 e4m3 first), ``block`` rows at a time, on the parameters'
     device."""
+    return bonafide_of(logits, p, shape, waves, block, precision)
+
+
+@torch.no_grad()
+def bonafide_of(forward: Callable, p: Dict[str, torch.Tensor], shape,
+                waves: torch.Tensor, block: int, precision: str
+                ) -> torch.Tensor:
+    """``bonafide_scores`` of a model whose ``forward(p, shape, waves)``
+    gives (B, 2) logits."""
     dev = next(iter(p.values())).device
     p = Params(p, ROUNDINGS[precision])
     out: List[torch.Tensor] = []
     with exact_float32():
         for i in range(0, waves.shape[0], block):
             w = waves[i:i + block].to(dev, torch.float32)
-            out.append(logits(p, shape, w)[:, 1].cpu())
+            out.append(forward(p, shape, w)[:, 1].cpu())
     return torch.cat(out) if out else torch.zeros(0)
-
-
-def fit_duration(wave: Sequence[float], duration: int) -> torch.Tensor:
-    """A clip repeat-tiled to ``duration`` samples and cut to its first
-    ``duration`` (the reference repo's ``pad`` for evaluation)."""
-    x = torch.as_tensor(wave, dtype=torch.float32).reshape(-1)
-    reps = -(-duration // x.numel())
-    return x.repeat(reps)[:duration]

@@ -1,13 +1,23 @@
 """The operation and byte counts against reckonings by hand, written out
-with the published sizes of XLS-R 300M and AASIST."""
+with the published sizes of XLS-R 300M, AASIST and the XLSR-Conformer
+head."""
+
+import importlib
 
 import pytest
 
 from benchmark.counts import xlsr_aasist as counts
+from benchmark.counts import xlsr_conformer
+from benchmark.harness import card
 from benchmark.harness.runner import config as load_config
 
 FLAGSHIP = load_config("xlsr_aasist")
 STUDENT = load_config("xlsr6_aasist")
+# the reference repo's Conformer head (its ``Model``): emb_size 144, 4
+# heads, kernel 31, 4 blocks, feed-forward x4, conv expansion x2
+CONFORMER = dict(FLAGSHIP, family="xlsr_conformer", backend={
+    "emb_size": 144, "heads": 4, "kernel_size": 31, "n_encoders": 4,
+    "ff_mult": 4, "conv_expansion_factor": 2, "max_pos_emb": 512})
 
 
 def test_conv_frames_of_a_4_s_clip_and_a_1_s_window():
@@ -79,8 +89,52 @@ def test_attention_launch_and_bound():
     assert nbytes == 4 * 40 * 199 * 1024 * 2
     # bf16 on an H100: 65.2 MB at 3.35 TB/s (19.5 us) against 6.5 GFLOP
     # at 989 TFLOP/s (6.6 us): bound by the bytes, as at 576 windows
-    assert counts.bound_seconds(ops, nbytes, "bfloat16") == pytest.approx(
+    assert card.bound_seconds(ops, nbytes, "bfloat16") == pytest.approx(
         nbytes / 3.35e12)
     ops1, nbytes1 = counts.attention_launch(576, 49, 16, 64, 2)
-    assert counts.bound_seconds(ops1, nbytes1, "bfloat16") == pytest.approx(
+    assert card.bound_seconds(ops1, nbytes1, "bfloat16") == pytest.approx(
         nbytes1 / 3.35e12)
+
+
+@pytest.mark.parametrize("cfg", [FLAGSHIP, STUDENT, CONFORMER])
+def test_kernels_give_the_attention_launch_in_the_compute_dtype(cfg):
+    """One ``mha_small_t`` launch, as ``attention_launch`` counts it: the
+    flagship's and the student's (bf16), and the Conformer's encoder."""
+    fam = xlsr_conformer if cfg is CONFORMER else counts
+    assert fam.kernels(cfg, 40, 199) == {
+        "mha_small_t": (*counts.attention_launch(40, 199, 16, 64, 2),
+                        "bfloat16")}
+    f32 = dict(cfg, program=dict(cfg["program"], compute_dtype="float32"))
+    assert fam.kernels(f32, 576, 49)["mha_small_t"] == (
+        *counts.attention_launch(576, 49, 16, 64, 4), "float32")
+
+
+@pytest.mark.parametrize("family", ["xlsr_aasist", "xlsr_conformer"])
+def test_kernels_counted_are_the_programs_kernels(family):
+    """The adapter's list of kernels and the counts' name the same ones,
+    so that every kernel the harness reads in a trace has its count."""
+    program = importlib.import_module(f"benchmark.programs.{family}")
+    fam = xlsr_conformer if family == "xlsr_conformer" else counts
+    cfg = CONFORMER if family == "xlsr_conformer" else FLAGSHIP
+    listed = program.kernels()
+    assert set(listed) == set(fam.kernels(cfg, 40, 199))
+    assert all(isinstance(t, str) and t and n >= 0
+               for t, n in listed.values())
+
+
+def test_conformer_head_over_199_frames():
+    """199 frames and the class token, 200 rows, at width 144: per block
+    two feed-forwards (144 -> 576 -> 144), q, k, v, three products over 4
+    heads of 36 (Q K^T, Q against the position embeddings, P V), out,
+    pointwise 144 -> 576, depthwise 288 x 31, pointwise 288 -> 144."""
+    n = 200
+    block = (2 * (2 * n * 144 * 576 + 2 * n * 576 * 144)
+             + 3 * 2 * n * 144 * 144
+             + 3 * 2 * 4 * n * n * 36
+             + 2 * n * 144 * 144
+             + 2 * n * 144 * 576 + 2 * n * 288 * 31 + 2 * n * 288 * 144)
+    hand = 2 * 199 * 1024 * 144 + 4 * block + 2 * 144 * 2
+    assert xlsr_conformer.head_flops(CONFORMER, 199) == hand
+    assert xlsr_conformer.forward_flops(CONFORMER, 64000) == (
+        counts.frontend_flops(FLAGSHIP, 64000)
+        + counts.encoder_flops(FLAGSHIP, 199) + hand)

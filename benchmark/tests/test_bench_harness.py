@@ -1,14 +1,18 @@
 """The harness: its manifest against the benchmark's rules, finding every
-part by name, the import check, the refusal to run without a card, whole
-runs at a tiny size on the CPU (sound, and with each fault planted under
-the timed path), and the control."""
+part by name, a model family's parts kept out of the shared code, the
+import check, the refusal to run without a card, whole runs at a tiny size
+on the CPU (sound, and with each fault planted under the timed path), the
+control, and a second family's cells added as files."""
 
+import ast
+import io
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tokenize
 
 import pytest
 
@@ -75,6 +79,64 @@ def test_every_part_is_found_by_name():
         assert runner.reader(m["name"]).read({}) is None
 
 
+FAMILY_PACKAGES = tuple("benchmark." + part for part in runner.FAMILY_PARTS)
+FAMILY_WORDS = re.compile(r"xlsr_aasist|xlsr_conformer|AASIST|Conformer|"
+                          r"ssl_model|w2v")
+
+
+@pytest.mark.parametrize("folder", ["harness", "traffic"])
+def test_shared_code_names_no_family(folder):
+    """The code every cell shares reaches a family's reference, counts and
+    program adapter only through ``runner.family``: it imports none of
+    them by name, and names no family's classes or attributes."""
+    paths = sorted(p for p in os.listdir(os.path.join(runner.BENCH, folder))
+                   if p.endswith(".py"))
+    assert paths
+    for name in paths:
+        with open(os.path.join(runner.BENCH, folder, name)) as f:
+            assert not _family_names(f.read()), name
+
+
+def _family_names(src: str) -> list:
+    """The imports of a family's modules and the family words in a
+    module's code, less its comments and docstrings."""
+    tree = ast.parse(src)
+    docs = {(n.body[0].lineno, n.body[0].col_offset) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                              ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)
+            and isinstance(n.body[0].value.value, str)}
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            found.append(node.module or "")
+    found = [m for m in found if m.startswith(FAMILY_PACKAGES)]
+    return found + [t.string for t in tokenize.generate_tokens(
+        io.StringIO(src).readline)
+        if t.type != tokenize.COMMENT
+        and not (t.type == tokenize.STRING and t.start in docs)
+        and FAMILY_WORDS.search(t.string)]
+
+
+@pytest.mark.parametrize("src,found", [
+    ("from benchmark.reference import xlsr_aasist as ref\n", True),
+    ("import benchmark.counts.xlsr_conformer\n", True),
+    ("from benchmark.programs.xlsr_aasist import stages\n", True),
+    ("def f(m):\n    return m.ssl_model.model\n", True),
+    ("x = 'AASISTBackend'\n", True),
+    ('"""Reads AASIST\'s w2v keys."""\n# ssl_model\nx = 1\n', False),
+    ("from benchmark.harness import runner\n", False),
+])
+def test_the_static_check_sees_a_family_name(src, found):
+    """The check above fails a module that imports a family's parts or
+    names a family's classes in code, and passes one that names them only
+    in a comment or a docstring."""
+    assert bool(_family_names(src)) == found
+
+
 def test_each_cell_reports_setup_another_e2e_and_a_per_layer_metric():
     for w in MAN["workloads"]:
         e2e = [m["name"] for m in runner.cell_metrics(MAN, w["name"], False)]
@@ -114,15 +176,23 @@ def _python(code: str, cwd: str = ROOT) -> subprocess.CompletedProcess:
 
 
 def test_a_tiny_run_and_the_reference_load_no_jax():
-    """In a fresh process: a whole tiny run of each kind loads nothing of
-    JAX or the JAX package, and the reference nothing of the program."""
+    """In a fresh process: both families' references, and a reference run
+    of each, load nothing of the program, JAX or the JAX package, and a
+    whole tiny run of each kind nothing of JAX or the JAX package."""
     r = _python(
-        "import sys; sys.path.insert(0, '.');"
-        "from benchmark.reference import xlsr_aasist;"
+        "import sys, torch; sys.path.insert(0, '.');"
+        "from benchmark.reference import xlsr_aasist, xlsr_conformer;"
         "from benchmark.harness import compare, audio, weights;"
+        "from benchmark.tests import tiny;"
+        "from benchmark.harness import runner;"
+        "cpu = torch.device('cpu');"
+        "[m.bonafide_scores(weights.model_weights(c, 1, cpu), m.ModelShape(c),"
+        " torch.zeros(2, 16000)) for m, c in ("
+        "(xlsr_aasist, tiny.config('xlsr_aasist')),"
+        " (xlsr_conformer, tiny.config('tiny_conformer')))];"
+        "assert not runner.forbidden_modules();"
         "assert not [m for m in sys.modules if m.split('.')[0] in "
         "('rtdsd_tpu_torch', 'rtdsd_tpu', 'jax', 'flax')], 'ref';"
-        "from benchmark.tests import tiny; from benchmark.harness import runner;"
         "[tiny.run(tiny.context(c)) for c in "
         "('aasist_score_b40', 'aasist_serve_paced')];"
         "print(runner.forbidden_modules())")
@@ -208,6 +278,100 @@ def test_new_parts_are_added_as_files_found_by_name(tmp_path):
     assert all(after[p] == b for p, b in before.items())
 
 
+def _off_the_card(metrics) -> set:
+    """The end-to-end metrics a run without a card reports: all but those
+    read from the device trace."""
+    return {m["name"] for m in metrics if m["source"] != "device_trace"}
+
+
+# Run in a copy of the benchmark that holds a second family's cells: each
+# sound run's result line, and each fault's and the fp8 control's numbers
+# beside the cell's limits.
+DRIVE_NEW_FAMILY = """
+import json, sys, time, torch
+sys.path.insert(0, '.')
+from benchmark.harness import runner
+torch.set_num_threads(1)
+man = runner.manifest()
+out = {}
+for cell in ('conformer_score', 'conformer_serve'):
+    wl = runner.workload(cell)
+    traffic = runner.traffic(wl['kind'])
+    def ctx(trace=False, fault=None):
+        return runner.Context(cell, wl, runner.config(wl['config']),
+                              2 ** 31 + 7, 1.0, trace, torch.device('cpu'),
+                              fault=fault, t_start=time.perf_counter())
+    for trace in (False, True):
+        c = ctx(trace)
+        out[f'{cell} trace {int(trace)}'] = runner.result_line(
+            man, cell, c, traffic.run(c), {})
+    for fault in ('half_batch', 'altered'):
+        c = ctx(fault=fault)
+        out[f'{cell} {fault}'] = runner.result_line(
+            man, cell, c, traffic.run(c), {})['checks']
+    gaps = traffic.fp8_gaps(ctx())
+    out[f'{cell} fp8'] = {k: {'value': v, 'limit': wl['limits'][k]}
+                          for k, v in gaps.items()}
+print(json.dumps(out))
+"""
+
+
+def test_a_new_family_enters_as_new_files(tmp_path):
+    """A copy of the benchmark gains a tiny configuration of the
+    ``xlsr_conformer`` family, and a cell of each traffic kind on it, as
+    new files and manifest entries. Each cell runs correct with and
+    without the trace, reports the metrics the manifest gives it, and is
+    not correct with each planted fault or with the reference in fp8 in
+    the program's place; no file that was there changes."""
+    shutil.copytree(os.path.join(ROOT, "benchmark"), tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = tmp_path / "benchmark"
+    before = {p: p.read_bytes() for p in bench.rglob("*") if p.is_file()}
+    man = json.loads(json.dumps(MAN))
+    (bench / "configs" / "tiny_conformer.json").write_text(
+        json.dumps(tiny.config("tiny_conformer")))
+    man["configs"].append({"name": "tiny_conformer", "source": "test",
+                           "file": "benchmark/configs/tiny_conformer.json",
+                           "reduced": [], "why": "test"})
+    new = {"conformer_score": "aasist_score_b40",
+           "conformer_serve": "aasist_serve_paced"}
+    for cell, like in new.items():
+        wl = runner.workload(like)
+        wl.update(name=cell, config="tiny_conformer", traffic=cell + "_mix",
+                  limits=tiny.LIMITS)
+        wl["params"].update(tiny.PARAMS[wl["kind"]])
+        (bench / "workloads" / f"{cell}.json").write_text(json.dumps(wl))
+        man["workloads"].append({"name": cell, "config": "tiny_conformer",
+                                 "traffic": cell + "_mix", "chips": 1,
+                                 "why": "test"})
+        for m in man["end_to_end"] + man["per_layer"]:
+            if like in m.get("workloads", ()):
+                m["workloads"].append(cell)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(man))
+    r = _python(f"import sys; sys.path.append({ROOT!r})\n"
+                + DRIVE_NEW_FAMILY, cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    for cell in new:
+        for trace in (0, 1):
+            line = got[f"{cell} trace {trace}"]
+            assert line["correct"] and line["failed"] == 0, line["checks"]
+            assert line["checks"]["low_precision_ops"]["value"] == 0
+            assert list(line)[-1] == "checks"
+            metrics = runner.cell_metrics(man, cell, bool(trace))
+            want = {m["name"] for m in metrics}
+            assert want and set(line["metrics"]) <= want
+            if not trace:           # a CPU run reads no device trace
+                assert set(line["metrics"]) == _off_the_card(metrics)
+        for control in ("half_batch", "altered", "fp8"):
+            checks = got[f"{cell} {control}"]
+            assert any(c["value"] > c["limit"] for c in checks.values()), \
+                (cell, control, checks)
+    after = {p: p.read_bytes() for p in bench.rglob("*") if p.is_file()
+             and "__pycache__" not in str(p)}
+    assert all(after[p] == b for p, b in before.items())
+
+
 @pytest.mark.parametrize("cell", ["aasist_score_b40", "aasist_serve_paced"])
 @pytest.mark.parametrize("trace", [False, True])
 def test_a_sound_tiny_run_is_correct(cell, trace):
@@ -218,8 +382,30 @@ def test_a_sound_tiny_run_is_correct(cell, trace):
     want = runner.cell_metrics(MAN, cell, trace)
     got = set(line["metrics"])
     assert got <= {m["name"] for m in want}
-    if not trace:
-        assert got == {m["name"] for m in want}
+    if not trace:               # a CPU run reads no device trace
+        assert got == _off_the_card(want)
+
+
+def test_the_scoring_cells_card_time_is_the_traced_calls_busy_time(
+        monkeypatch):
+    """``card_ms_per_clip`` is the busy time of the device operations in
+    the call traced after the window, over the clips that call scored."""
+    from benchmark.harness import trace
+
+    def traced(fn):
+        out = fn()
+        # two overlapping operations and one apart: 3 ms busy in 10 ms
+        ops = [("k", 0, 2_000_000), ("k", 1_000_000, 2_000_000),
+               ("k", 5_000_000, 6_000_000)]
+        return out, trace.Trace(ops, [("bench.section", 0, 10_000_000)],
+                                0, 10_000_000)
+
+    monkeypatch.setattr(trace, "traced", traced)
+    line = tiny.run(tiny.context("aasist_score_b40"))
+    assert line["correct"]
+    clips = tiny.PARAMS["score_files"]["trace_files"]
+    assert line["metrics"]["card_ms_per_clip"]["value"] == \
+        pytest.approx(3.0 / clips)
 
 
 @pytest.mark.parametrize("cell", ["aasist_score_b40", "aasist_serve_paced"])

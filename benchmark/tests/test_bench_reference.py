@@ -1,7 +1,7 @@
-"""The plain reference against the program (``rtdsd_tpu_torch``) on the
-CPU at a tiny size, in float32: the whole model at two depths, a serving
-window, the weights' names, and the loader's tiling and cutting of
-files. The reference itself imports neither."""
+"""The plain references against the program (``rtdsd_tpu_torch``) on the
+CPU at a tiny size, in float32: each family's whole model at two depths
+and its weights' names, a serving window, and the loader's tiling and
+cutting of files. The references themselves import neither."""
 
 import os
 
@@ -17,29 +17,48 @@ from benchmark.tests.tiny import config as tiny
 SEED = 2 ** 31 + 11
 
 
-@pytest.mark.parametrize("name", ["xlsr_aasist", "xlsr6_aasist"])
+@pytest.mark.parametrize("name", ["xlsr_aasist", "xlsr6_aasist",
+                                  "tiny_conformer"])
 def test_param_shapes_are_the_programs_state_dict(name):
     cfg = tiny(name, 2)
+    fam = runner.family(cfg).reference
     want = {k: tuple(v.shape) for k, v in program.build_model(
-        cfg, make_weights(ref.param_shapes(ref.ModelShape(cfg)), 1,
+        cfg, make_weights(fam.param_shapes(fam.ModelShape(cfg)), 1,
                           torch.device("cpu")),
         torch.device("cpu")).state_dict().items()}
-    assert ref.param_shapes(ref.ModelShape(cfg)) == want
+    assert fam.param_shapes(fam.ModelShape(cfg)) == want
 
 
-@pytest.mark.parametrize("layers,samples", [(1, 16000), (3, 24000)])
-@pytest.mark.parametrize("pools", ["zero", "random"])
-def test_reference_matches_program_float32(layers, samples, pools):
-    cfg = tiny("xlsr_aasist", layers)
+# (family's configuration, layers, samples, the pools' scoring vectors)
+MODELS = [("xlsr_aasist", 1, 16000, "zero"),
+          ("xlsr_aasist", 3, 24000, "zero"),
+          ("xlsr_aasist", 1, 16000, "random"),
+          ("xlsr_aasist", 3, 24000, "random"),
+          # 531 frames: the relative positions clip at 512
+          ("tiny_conformer", 1, 16000, None),
+          ("tiny_conformer", 2, 170000, None)]
+
+
+@pytest.mark.parametrize("name,layers,samples,pools", MODELS)
+def test_reference_matches_program_float32(name, layers, samples, pools):
+    """Both sides compute in float32 (TF32 off in the reference) with the
+    same operations in another order: the program's attention kernel's
+    plain path, fused norms and einsums against plain matmuls. Logits of
+    order 1 after a few layers then differ by rounding, 1e-7 to 1e-6 at
+    these sizes; atol 1e-4 leaves room for the longer sums of 531 frames
+    and fails a wrong operation, which moves a logit by 1e-2 or more (the
+    relative positions clipped at 100 instead of 512 move one by 0.018)."""
+    cfg = tiny(name, layers)
     if pools == "random":
         cfg.pop("weights")
+    fam = runner.family(cfg).reference
     w = model_weights(cfg, SEED, torch.device("cpu"))
     model = program.build_model(cfg, w, torch.device("cpu"))
     waves = torch.from_numpy(np.stack(audio.tones(
         np.random.default_rng(1), [samples] * 3, torch.device("cpu"))))
     with torch.no_grad():
         got = model(waves)[:, 1]
-    want = ref.bonafide_scores(w, ref.ModelShape(cfg), waves, block=2)
+    want = fam.bonafide_scores(w, fam.ModelShape(cfg), waves, block=2)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
 
@@ -103,6 +122,6 @@ def test_fit_duration_matches_the_loader(tmp_path, native):
     ds = AudioDataset([Trial(f, os.path.basename(f), 0) for f in paths],
                       8000, is_random_start=False)
     (batch,) = list(EvalLoader(ds, 4, use_native=native))
-    want = np.stack([ref.fit_duration(audio.read_wav(f), 8000).numpy()
+    want = np.stack([audio.fit_duration(audio.read_wav(f), 8000).numpy()
                      for f in paths])
     np.testing.assert_array_equal(batch.waves, want)

@@ -13,10 +13,12 @@ to the reference's score of its file, tiled and cut as the reference repo
 evaluates, and one batch of the window's first call, drawn from the seed,
 to the census of narrow operations.
 
-End-to-end: ``score_clips_per_s``, the clips scored over the window's
-whole time. Per-layer (``--trace 1``): the loader alone over the files,
-the front-end, encoder and back-end alone on one batch (CUDA events), and
-a traced call over the first ``trace_files`` files.
+End-to-end: ``card_ms_per_clip``, the card's busy milliseconds a clip
+in a traced call over the first ``trace_files`` files, made after the
+window in every run. Per-layer (``--trace 1``): the clips scored over the
+window's whole time, the loader alone over the files, the front-end,
+encoder and back-end alone on one batch (CUDA events), and that traced
+call's kernels, operations and idle time.
 """
 
 from __future__ import annotations
@@ -30,11 +32,9 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from benchmark.counts import xlsr_aasist as counts
-from benchmark.harness import audio, cell, faults, trace
+from benchmark.harness import audio, card, cell, faults, trace
 from benchmark.harness.census import Census
 from benchmark.harness.runner import Outcome
-from benchmark.reference import xlsr_aasist as ref
 
 
 def _lengths(p: dict, rng: np.random.Generator) -> np.ndarray:
@@ -43,7 +43,7 @@ def _lengths(p: dict, rng: np.random.Generator) -> np.ndarray:
 
 
 def _reference_waves(paths, duration: int) -> torch.Tensor:
-    return torch.stack([ref.fit_duration(audio.read_wav(f), duration)
+    return torch.stack([audio.fit_duration(audio.read_wav(f), duration)
                         for f in paths])
 
 
@@ -78,12 +78,12 @@ def _event_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _per_layer(ctx, model, ds, p, readings) -> trace.Trace:
-    """The per-layer readings of a traced run, after the window."""
+def _per_layer(ctx, model, ds, p, readings):
+    """The per-layer readings of a traced run, after the window; returns
+    ``_traced_call``'s trace and clips."""
     from rtdsd_tpu_torch.data.loader import EvalLoader
-    from rtdsd_tpu_torch.models.aasist import AASISTBackend
-    from rtdsd_tpu_torch.ops.attention import mha_small_t
 
+    fam = ctx.family
     b = int(p["batch"])
     loader = EvalLoader(ds, b, num_workers=int(p["threads"]),
                         use_native=True)
@@ -96,37 +96,40 @@ def _per_layer(ctx, model, ds, p, readings) -> trace.Trace:
         t = time.perf_counter()
     readings["decode_ms_per_batch"] = 1e3 * float(np.mean(took))
     if ctx.device.type == "cuda":
-        enc = model.ssl_model.model
+        frontend, encoder, backend = fam.program.stages(model)
         waves = torch.from_numpy(first.waves).to(ctx.device)
         with torch.inference_mode():
-            conv = enc.feature_extractor(waves)
-            feats = enc(None, conv_feats=conv)
+            conv = frontend(waves)
+            feats = encoder(conv)
         readings["frontend_ms_per_clip"] = _event_ms(
-            lambda: enc.feature_extractor(waves)) / b
+            lambda: frontend(waves)) / b
         readings["encoder_ms_per_clip"] = _event_ms(
-            lambda: enc(None, conv_feats=conv)) / b
+            lambda: encoder(conv)) / b
         readings["backend_ms_per_clip"] = _event_ms(
-            lambda: AASISTBackend.forward(model, feats)) / b
+            lambda: backend(feats)) / b
+    launches = fam.program.kernels()
+    tr, n = _traced_call(ctx, model, ds, p)
+    readings.update(cell.kernel_readings(
+        ctx, launches, tr, b, fam.counts.num_frames(ctx.config, ds.duration)))
+    readings["idle_busy_s"], readings["idle_span_s"] = tr.busy_s, tr.window_s
+    readings["card_flops"] = n * fam.counts.forward_flops(ctx.config,
+                                                          ds.duration)
+    readings["card_busy_s"] = tr.busy_s
+    return tr, n
+
+
+def _traced_call(ctx, model, ds, p):
+    """(the trace of one ``score_dataset`` call over the first
+    ``trace_files`` files, the clips it scored)."""
     sub = _dataset([t.path for t in ds.trials[:int(p["trace_files"])]],
                    ds.duration)
-    launches = mha_small_t.launches
 
     def call():
         with torch.profiler.record_function("bench.score_dataset"):
             return _score(sub, model, p, ctx.device)
 
     _, tr = trace.traced(call)
-    launches = mha_small_t.launches - launches
-    cfg = ctx.config
-    hd = cfg["hidden_size"] // cfg["num_attention_heads"]
-    ops, nbytes = counts.attention_launch(
-        b, counts.num_frames(cfg, ds.duration), cfg["num_attention_heads"],
-        hd, 2)
-    readings["attn_kernel_s"] = tr.kernel_seconds("mha_small_t")
-    readings["attn_bound_s"] = launches * counts.bound_seconds(
-        ops, nbytes, "bfloat16")
-    readings["idle_busy_s"], readings["idle_span_s"] = tr.busy_s, tr.window_s
-    return tr
+    return tr, len(sub.trials)
 
 
 def run(ctx) -> Outcome:
@@ -142,7 +145,7 @@ def run(ctx) -> Outcome:
         expected = [t.utt_id for t in ds.trials]
         phases.mark("files written")
         weights, model = cell.setup_model(ctx)
-        census = Census([model])
+        census = Census(ctx.family.program.census_modules(model))
         phases.mark("weights and model")
         with faults.planted(ctx.fault):
             _score(_dataset(paths[:2 * int(p["batch"])], duration), model, p,
@@ -160,13 +163,15 @@ def run(ctx) -> Outcome:
             window = time.perf_counter() - t0
             census.remove()
             clips = sum(len(c) for c in calls)
+            counts = ctx.family.counts
             readings = {"model_flops": clips * counts.forward_flops(
                             ctx.config, duration),
                         "mfu_seconds": window,
-                        "peak_flops": counts.PEAK_FLOPS[
-                            ctx.config["program"]["compute_dtype"]]}
-            tr = _per_layer(ctx, model, ds, p, readings) if ctx.trace \
-                else None
+                        "peak_flops": card.PEAK_FLOPS[
+                            ctx.config["program"]["compute_dtype"]],
+                        "clips_per_s": clips / window}
+            tr, traced = (_per_layer(ctx, model, ds, p, readings)
+                          if ctx.trace else _traced_call(ctx, model, ds, p))
         peak = cell.peak_bytes(ctx.device)
         del model
         cell.free(ctx.device)
@@ -180,10 +185,12 @@ def run(ctx) -> Outcome:
                                        got, index, census)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # no device operation in the trace (a CPU run): no card time to give
+    e2e = ({"card_ms_per_clip": 1e3 * tr.busy_s / traced} if tr.busy_s
+           else {})
     return Outcome(setup_s=setup_s, attempted=len(index), failed=failed,
-                   end_to_end={"score_clips_per_s": clips / window},
-                   readings=readings, checks=checks,
-                   memory_peak_bytes=peak, trace=tr)
+                   end_to_end=e2e, readings=readings, checks=checks,
+                   memory_peak_bytes=peak, trace=tr if ctx.trace else None)
 
 
 def fp8_gaps(ctx) -> dict:
@@ -201,7 +208,6 @@ def fp8_gaps(ctx) -> dict:
     from benchmark.harness.weights import model_weights
 
     weights = model_weights(ctx.config, ctx.seed, ctx.device)
-    got = ref.bonafide_scores(weights, ref.ModelShape(ctx.config), waves,
-                              precision="fp8").numpy()
+    got = cell.reference_scores(ctx, weights, waves, precision="fp8")
     return cell.reference_gaps(ctx, weights, waves, got,
                                np.arange(len(paths)))

@@ -28,11 +28,9 @@ import time
 import numpy as np
 import torch
 
-from benchmark.counts import xlsr_aasist as counts
-from benchmark.harness import audio, cell, faults, trace
+from benchmark.harness import audio, card, cell, faults, trace
 from benchmark.harness.census import Census
 from benchmark.harness.runner import Outcome
-from benchmark.reference import xlsr_aasist as ref
 
 
 class Streams:
@@ -58,7 +56,7 @@ def _inputs(ctx, p: dict, ticks: int):
     rng = np.random.default_rng(ctx.seed)
     window = int(p["window_s"] * audio.SR)
     hop = int(p["hop_s"] * audio.SR)
-    first = window + ref_tail(ref.ModelShape(ctx.config))
+    first = window + ref_tail(ctx.family.reference.ModelShape(ctx.config))
     total = first + (int(p["warmup_ticks"]) + ticks
                      + int(p["trace_ticks"])) * hop
     S = int(p["streams"])
@@ -76,8 +74,6 @@ def _sample(p: dict, rng, streams: int, windows: int):
 
 
 def run(ctx) -> Outcome:
-    from rtdsd_tpu_torch.engine.serving import MultiStreamScorer
-
     p = ctx.workload["params"]
     S, warm = int(p["streams"]), int(p["warmup_ticks"])
     ticks = int(round(ctx.seconds / p["hop_s"]))
@@ -86,12 +82,12 @@ def run(ctx) -> Outcome:
     streams, first, pick_s, pick_w, counted = _inputs(ctx, p, ticks)
     phases.mark("stream audio")
     weights, model = cell.setup_model(ctx)
-    census = Census([model, model.ssl_model.model.feature_extractor])
+    census = Census(ctx.family.program.census_modules(model))
     phases.mark("weights and model")
     window = int(p["window_s"] * audio.SR)
     hop = int(p["hop_s"] * audio.SR)
-    eng = MultiStreamScorer(model, model.w2v_cfg, duration=window, hop=hop,
-                            max_streams=S)
+    eng = ctx.family.program.serving_engine(model, duration=window, hop=hop,
+                                            max_streams=S)
     if first != window + eng.seg_samples - eng.seg_hop:
         raise RuntimeError("the engine's segment tail is not the conv's "
                            "receptive field less one stride")
@@ -184,10 +180,9 @@ def run(ctx) -> Outcome:
 def _traced_ticks(ctx, eng, push, g0: int, n: int, hop_s: float,
                   readings: dict) -> trace.Trace:
     """``n`` more paced ticks under the profiler, each a ``bench.tick``
-    range; their host and device time, the attention kernel's, and the
-    model operations of the windows their polls returned."""
-    from rtdsd_tpu_torch.ops.attention import mha_small_t
-
+    range; their host and device time, the kernels', and the model
+    operations of the windows their polls returned."""
+    fam = ctx.family
     rf = torch.profiler.record_function
     scored = []
 
@@ -205,9 +200,8 @@ def _traced_ticks(ctx, eng, push, g0: int, n: int, hop_s: float,
                     scored.append(len(eng.poll()))
         eng.drain()
 
-    launches = mha_small_t.launches
+    launches = fam.program.kernels()
     _, tr = trace.traced(ticks)
-    launches = mha_small_t.launches - launches
     spans = tr.ranges("bench.tick")
     walls = [(e - s) / 1e9 for _, s, e in spans]
     busy = [tr.busy_within(s, e) for _, s, e in spans]
@@ -215,17 +209,13 @@ def _traced_ticks(ctx, eng, push, g0: int, n: int, hop_s: float,
         [w - b for w, b in zip(walls, busy)])) if spans else None
     readings["idle_busy_s"], readings["idle_span_s"] = sum(busy), sum(walls)
     cfg = ctx.config
-    readings["model_flops"] = sum(scored) * counts.forward_flops(
+    readings["model_flops"] = sum(scored) * fam.counts.forward_flops(
         cfg, int(ctx.workload["params"]["window_s"] * audio.SR))
     readings["mfu_seconds"] = sum(busy)
-    readings["peak_flops"] = counts.PEAK_FLOPS[
+    readings["peak_flops"] = card.PEAK_FLOPS[
         cfg["program"]["compute_dtype"]]
-    ops, nbytes = counts.attention_launch(
-        eng.score_batch, eng.win_frames, cfg["num_attention_heads"],
-        cfg["hidden_size"] // cfg["num_attention_heads"], 2)
-    readings["attn_kernel_s"] = tr.kernel_seconds("mha_small_t")
-    readings["attn_bound_s"] = launches * counts.bound_seconds(
-        ops, nbytes, "bfloat16")
+    readings.update(cell.kernel_readings(ctx, launches, tr, eng.score_batch,
+                                         eng.win_frames))
     return tr
 
 
@@ -241,19 +231,19 @@ def fp8_gaps(ctx) -> dict:
     weights = model_weights(ctx.config, ctx.seed, ctx.device)
     window = int(p["window_s"] * audio.SR)
     hop = int(p["hop_s"] * audio.SR)
-    shape = ref.ModelShape(ctx.config)
     waves = torch.from_numpy(np.stack([
         streams.samples(int(s), (warm + 1 + int(w)) * hop, window)
         for s, w in zip(pick_s, pick_w)]))
-    got = ref.bonafide_scores(weights, shape, waves, block=64,
-                              precision="fp8").numpy()
+    got = cell.reference_scores(ctx, weights, waves, block=64,
+                                precision="fp8")
     return cell.reference_gaps(ctx, weights, waves, got,
                                np.arange(len(got)), block=64)
 
 
 def ref_tail(shape) -> int:
     """Samples a segment reads past its last frame's stride: the conv
-    stack's receptive field less one stride (80 for XLS-R)."""
+    stack's receptive field less one stride (80 for XLS-R), from the
+    reference's ``shape.conv``."""
     rf, stride = 1, 1
     for _, k, s in reversed(shape.conv):
         rf = (rf - 1) * s + k
